@@ -6,43 +6,67 @@
 Phases, each printed before the last line:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the coded-matvec kernel from csrc/ with nvcc, and load it;
-3. the kernel against its plain torch version on the card, for apply,
-   apply_dots and apply_div, on case_static 102x102x24, a small
-   case_convection and case_static 256x256x64, with the CPU tests'
-   tolerances (3e-6 x output scale; dots 2e-5 relative), and the time per
-   call of each;
-4. the main path: Simulation(float32, device="cuda").run(output_dir=...)
+2. build the kernels' two sources (csrc/coded_matvec.cu, csrc/coded_split.cu)
+   with nvcc, both at once, and load them;
+3. the whole-plane kernel (coded_matvec) against its plain torch version on
+   the card, for apply, apply_dots and apply_div, on case_static
+   102x102x24, a small case_convection and case_static 256x256x64, with the
+   CPU tests' tolerances (3e-6 x output scale; dots 2e-5 relative), and the
+   time per call of each;
+4. the split route's kernels (coded_stencil, coded_slab) against their plain
+   versions the same way, for apply, apply_dots and apply_div, on
+   case_static 256x256x64 (its compact U: the conductor's 5 planes) and the
+   small case_convection (the slab kernel's convection branch);
+5. the main path: Simulation(float32, device="cuda").run(output_dir=...)
    over 20 steps of case_static 102x102x24; every step converges, A and
-   the carry are finite, the VTK files exist, and the kernel's launch
-   count is at least 2 x the solver iterations;
-5. the first 5 steps of the same case on the card at float32 against the
+   the carry are finite, the VTK files exist, and the whole-plane kernel's
+   launch count is at least 2 x the solver iterations;
+6. the first 5 steps of the same case on the card at float32 against the
    port at float64 on the CPU (flat-roll operator): each float32 step taken
    from the float64 state within 4 tol scale; the free float32 run within
    4 tol scale after the first step and 8 after the fifth (see
    phase_cross_check);
-6. 3 steps of case_static 256x256x64 on the card: converged and finite.
+7. the main path at 256x256x64, 5 steps, on the split route (the default
+   there: both split kernels launch, the whole-plane kernel never) and on
+   the whole-plane kernel with a full-shape U, in turns (split, whole,
+   whole, split); every step converges, and the two routes' A agree within
+   4 tol scale after one step; ms/step, ms/iteration and iterations of
+   each;
+8. team7 (102x102x24) preconditioned, 20 steps each with cheb_jacobi
+   (order 8) and with jacobi: every step converges; then 3 jacobi steps on
+   the card, each taken from the float64 CPU jacobi state, within 4 tol
+   scale.
 
 Any failure raises and the exit code is not 0.  The line before the last
-is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
-and prints no result.
+is the kernels' JSON record, each kernel's launches counted over the main
+path it serves (phase 5 for coded_matvec, phase 7's first split run for
+the split pair); the last line is {"ok": true, "device": {...}}.  Without
+a CUDA device the script exits 1 and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 ATOL = 3e-6        # matvec: x output scale (tests/test_torch_coded.py)
 DOT_RTOL = 2e-5    # fused dots, relative to float64 sums
-KERNEL_SOURCE = "eddy_currents_3d_tpu_torch/csrc/coded_matvec.cu"
-REPLACES = "eddy_currents_3d_tpu/ops/pallas_coded.py:405"
+SOURCES = ("coded_matvec", "coded_split")
+KERNELS = {        # name: (source, TPU kernel it replaces)
+    "coded_matvec": ("eddy_currents_3d_tpu_torch/csrc/coded_matvec.cu",
+                     "eddy_currents_3d_tpu/ops/pallas_coded.py:405"),
+    "coded_stencil": ("eddy_currents_3d_tpu_torch/csrc/coded_split.cu",
+                      "eddy_currents_3d_tpu/ops/pallas_coded.py:602"),
+    "coded_slab": ("eddy_currents_3d_tpu_torch/csrc/coded_split.cu",
+                   "eddy_currents_3d_tpu/ops/pallas_coded.py:658"),
+}
 
 
 def say(*parts):
@@ -65,6 +89,40 @@ def cuda_ms(fn, n):
     return e0.elapsed_time(e1) / n
 
 
+def wrappers():
+    """{kernel name: its wrapper}; each wrapper counts its launches."""
+    from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
+    from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (coded_slab,
+                                                                 coded_stencil)
+    return {"coded_matvec": coded_matvec, "coded_stencil": coded_stencil,
+            "coded_slab": coded_slab}
+
+
+def counted(fn):
+    """(fn(), {kernel: launches}) with every count set to 0 just before
+    ``fn`` and read just after."""
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    out = fn()
+    return out, {name: w.launches for name, w in ws.items()}
+
+
+@contextlib.contextmanager
+def whole_plane_route():
+    """The coded operator on the whole-plane kernel with a full-shape U at
+    any plane size (what ``from_assembled_coded(compact_u=False)`` gives),
+    by lifting the route gate's budget."""
+    from eddy_currents_3d_tpu_torch.ops import coded
+
+    prev = coded._WHOLE_PLANE_BUDGET
+    coded._WHOLE_PLANE_BUDGET = float("inf")
+    try:
+        yield
+    finally:
+        coded._WHOLE_PLANE_BUDGET = prev
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -78,14 +136,19 @@ def phase_device():
 
 def phase_build():
     from eddy_currents_3d_tpu_torch.ops._build import build_library
-    from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
 
-    path, log, seconds = build_library("coded_matvec")
-    coded_matvec._library()
-    say(f"[2] built {os.path.relpath(path)} in {seconds:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            say("    ptxas:", line.strip())
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(build_library, SOURCES))
+    wall = time.perf_counter() - t0
+    for w in wrappers().values():
+        w._library()
+    for name, (path, log, seconds) in zip(SOURCES, built):
+        say(f"[2] built {os.path.relpath(path)} in {seconds:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                say("    ptxas:", line.strip())
+    say(f"[2] both builds took {wall:.2f} s of wall time")
 
 
 def _case_ops(text, dev):
@@ -98,9 +161,40 @@ def _case_ops(text, dev):
     return model, sysm, from_assembled_coded(sysm, model, dev)
 
 
-def phase_kernel_vs_plain(grids, dev):
-    """Returns {grid name: record} with errors and per-call times."""
+def _inputs(model, dev, seed):
+    """Random x and w on the card, U masked to the conductor."""
     from eddy_currents_3d_tpu_torch.assembly.stencil import State
+
+    shape = model.shape_zyx
+    rng = np.random.default_rng(seed)
+    cm = np.asarray(model.cond_mask)
+    f = lambda a: torch.from_numpy(a).to(dev, torch.float32)
+    x = State(f(rng.standard_normal((3,) + shape)),
+              f(rng.standard_normal(shape) * cm))
+    w = State(f(rng.standard_normal((3,) + shape)),
+              f(rng.standard_normal(shape) * cm))
+    return x, w
+
+
+def _f64_dots(parts):
+    """dot(y, w) and dot(y, y) in float64 over (y, w) tensor pairs."""
+    ref_w = sum(float((y.double() * w.double()).sum()) for y, w in parts)
+    ref_y = sum(float((y.double() ** 2).sum()) for y, _ in parts)
+    return ref_w, ref_y
+
+
+def _dot_err(pw, py, ref_w, ref_y):
+    return max(abs(float(pw) - ref_w) / max(abs(ref_w), 1.0),
+               abs(float(py) - ref_y) / max(abs(ref_y), 1.0))
+
+
+def _maxabs(a, b):
+    return (a - b).abs().max().item()
+
+
+def phase_kernel_vs_plain(grids, dev):
+    """The whole-plane kernel.  Returns {grid name: record} with errors and
+    per-call times."""
     from eddy_currents_3d_tpu_torch.ops.coded import coded_apply_reference
     from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
 
@@ -108,13 +202,7 @@ def phase_kernel_vs_plain(grids, dev):
     for name, text in grids:
         model, sysm, op = _case_ops(text, dev)
         shape = model.shape_zyx
-        rng = np.random.default_rng(0)
-        cm = np.asarray(model.cond_mask)
-        f = lambda a: torch.from_numpy(a).to(dev, torch.float32)
-        x = State(f(rng.standard_normal((3,) + shape)),
-                  f(rng.standard_normal(shape) * cm))
-        w = State(f(rng.standard_normal((3,) + shape)),
-                  f(rng.standard_normal(shape) * cm))
+        x, w = _inputs(model, dev, 0)
         plain = lambda U=x.U, ww=None: coded_apply_reference(
             x.A, U, op.code, op.cf, op.conv, op.consts, op.inertia_on_faces, ww)
 
@@ -122,26 +210,20 @@ def phase_kernel_vs_plain(grids, dev):
         scale = rA.abs().max().item()
         uscale = max(rU.abs().max().item(), scale)
         yA, yU = coded_matvec(op, x.A, x.U)
-        errs = {"apply": max((yA - rA).abs().max().item() / scale,
-                             (yU - rU).abs().max().item() / uscale)}
-        abs_err = max((yA - rA).abs().max().item(), (yU - rU).abs().max().item())
+        errs = {"apply": max(_maxabs(yA, rA) / scale, _maxabs(yU, rU) / uscale)}
+        abs_err = max(_maxabs(yA, rA), _maxabs(yU, rU))
 
         dA, dU, pw, py = coded_matvec(op, x.A, x.U, w)
-        ref_w = float((dA.double() * w.A.double()).sum()
-                      + (dU.double() * w.U.double()).sum())
-        ref_y = float((dA.double() ** 2).sum() + (dU.double() ** 2).sum())
-        errs["apply_dots"] = max((dA - rA).abs().max().item() / scale,
-                                 (dU - rU).abs().max().item() / uscale)
-        dot_err = max(abs(float(pw) - ref_w) / max(abs(ref_w), 1.0),
-                      abs(float(py) - ref_y) / max(abs(ref_y), 1.0))
-        abs_err = max(abs_err, (dA - rA).abs().max().item(),
-                      (dU - rU).abs().max().item())
+        errs["apply_dots"] = max(_maxabs(dA, rA) / scale,
+                                 _maxabs(dU, rU) / uscale)
+        dot_err = _dot_err(pw, py, *_f64_dots([(dA, w.A), (dU, w.U)]))
+        abs_err = max(abs_err, _maxabs(dA, rA), _maxabs(dU, rU))
 
         rD = plain(U=None)[1]
         dscale = max(rD.abs().max().item(), 1.0)
         yD = coded_matvec(op, x.A)
-        errs["apply_div"] = (yD - rD).abs().max().item() / dscale
-        abs_err = max(abs_err, (yD - rD).abs().max().item())
+        errs["apply_div"] = _maxabs(yD, rD) / dscale
+        abs_err = max(abs_err, _maxabs(yD, rD))
         torch.cuda.synchronize()
 
         n_k = 50
@@ -155,7 +237,7 @@ def phase_kernel_vs_plain(grids, dev):
                           cuda_ms(lambda: plain(U=None), n_p)),
         }
         nz, ny, nx = shape
-        say(f"[3] {name} ({nx}x{ny}x{nz}, conv={op.has_conv}): "
+        say(f"[3] coded_matvec {name} ({nx}x{ny}x{nz}, conv={op.has_conv}): "
             + "  ".join(f"{m} err {errs[m]:.2e} kernel {t[m][0] * 1e3:.1f} us"
                         f" plain {t[m][1] * 1e3:.1f} us" for m in t)
             + f"  dots rel err {dot_err:.2e}")
@@ -168,21 +250,105 @@ def phase_kernel_vs_plain(grids, dev):
     return out
 
 
+def phase_split_vs_plain(grids, dev):
+    """The split route's two kernels, each against its plain version.
+    Returns {grid name: {kernel: record}} with errors and per-call times."""
+    from eddy_currents_3d_tpu_torch.assembly.stencil import State
+    from eddy_currents_3d_tpu_torch.ops.coded import (coded_slab_reference,
+                                                      coded_stencil_reference)
+    from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (coded_slab,
+                                                                 coded_stencil)
+
+    out = {}
+    for name, text in grids:
+        model, _, op = _case_ops(text, dev)
+        nz, ny, nx = model.shape_zyx
+        zb0, zb1 = op.cond_z
+        x, w = _inputs(model, dev, 1)
+        Uc, wc = x.U[zb0:zb1], State(w.A, w.U[zb0:zb1])
+        own = torch.cat([torch.arange(0, zb0), torch.arange(zb1, nz)]).to(dev)
+        plain_st = lambda wA=None: coded_stencil_reference(
+            x.A, op.consts, op.cond_z, wA)
+        plain_sl = lambda U=Uc, ww=None: coded_slab_reference(
+            x.A, U, op.code, op.cf, op.conv, op.consts, op.inertia_on_faces,
+            op.cond_z, ww)
+
+        # ---- stencil kernel: the planes outside the slab ----
+        rA = plain_st()[:, own]
+        scale = rA.abs().max().item()
+        yA = coded_stencil(op, x.A)[:, own]
+        dA, pw, py = coded_stencil(op, x.A, w.A)
+        dA = dA[:, own]
+        st_err = {"apply": _maxabs(yA, rA) / scale,
+                  "apply_dots": _maxabs(dA, rA) / scale}
+        st_dot = _dot_err(pw, py, *_f64_dots([(dA, w.A[:, own])]))
+        st_abs = max(_maxabs(yA, rA), _maxabs(dA, rA))
+
+        # ---- slab kernel: the slab's planes, compact U ----
+        sA, sU = plain_sl()
+        sscale = sA.abs().max().item()
+        uscale = max(sU.abs().max().item(), sscale)
+        yS = torch.empty_like(x.A)
+        yU = coded_slab(op, x.A, Uc, yS)
+        yS = yS[:, zb0:zb1]
+        dS = torch.empty_like(x.A)
+        dU, pw, py = coded_slab(op, x.A, Uc, dS, wc)
+        dS = dS[:, zb0:zb1]
+        rD = plain_sl(U=None)
+        yD = coded_slab(op, x.A)
+        dscale = max(rD.abs().max().item(), 1.0)
+        sl_err = {"apply": max(_maxabs(yS, sA) / sscale, _maxabs(yU, sU) / uscale),
+                  "apply_dots": max(_maxabs(dS, sA) / sscale,
+                                    _maxabs(dU, sU) / uscale),
+                  "apply_div": _maxabs(yD, rD) / dscale}
+        sl_dot = _dot_err(pw, py, *_f64_dots([(dS, w.A[:, zb0:zb1]),
+                                              (dU, wc.U)]))
+        sl_abs = max(_maxabs(yS, sA), _maxabs(yU, sU), _maxabs(dS, sA),
+                     _maxabs(dU, sU), _maxabs(yD, rD))
+        torch.cuda.synchronize()
+
+        n_k, n_p = 50, 4
+        buf = torch.empty_like(x.A)
+        st_t = {"apply": (cuda_ms(lambda: coded_stencil(op, x.A), n_k),
+                          cuda_ms(lambda: plain_st(), n_p)),
+                "apply_dots": (cuda_ms(lambda: coded_stencil(op, x.A, w.A), n_k),
+                               cuda_ms(lambda: plain_st(w.A), n_p))}
+        sl_t = {"apply": (cuda_ms(lambda: coded_slab(op, x.A, Uc, buf), n_k),
+                          cuda_ms(lambda: plain_sl(), n_p)),
+                "apply_dots": (cuda_ms(lambda: coded_slab(op, x.A, Uc, buf, wc),
+                                       n_k),
+                               cuda_ms(lambda: plain_sl(ww=wc), n_p)),
+                "apply_div": (cuda_ms(lambda: coded_slab(op, x.A), n_k),
+                              cuda_ms(lambda: plain_sl(U=None), n_p))}
+        for kname, errs, t, derr in (("coded_stencil", st_err, st_t, st_dot),
+                                     ("coded_slab", sl_err, sl_t, sl_dot)):
+            say(f"[4] {kname} {name} ({nx}x{ny}x{nz}, slab z {zb0}..{zb1 - 1}, "
+                f"conv={op.has_conv}): "
+                + "  ".join(f"{m} err {errs[m]:.2e} kernel {t[m][0] * 1e3:.1f}"
+                            f" us plain {t[m][1] * 1e3:.1f} us" for m in t)
+                + f"  dots rel err {derr:.2e}")
+            bad = {m: e for m, e in errs.items() if not e <= ATOL}
+            if bad or not derr <= DOT_RTOL:
+                raise AssertionError(f"{kname} != plain on {name}: {bad}, "
+                                     f"dots {derr:.3e}")
+        out[name] = {"coded_stencil": {"times": st_t, "max_abs_err": st_abs},
+                     "coded_slab": {"times": sl_t, "max_abs_err": sl_abs}}
+    return out
+
+
 def phase_main_path(dev):
     from eddy_currents_3d_tpu_torch import Simulation
-    from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
     from eddy_currents_3d_tpu_torch.testing.cases import case_static, load_case
 
     model = load_case(case_static(shape_xyz=(102, 102, 24), steps=20))
     sim = Simulation(model, dtype=torch.float32, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
-        coded_matvec.launches = 0
-        st, diag = sim.run(output_dir=tmp)
-        launches = coded_matvec.launches
+        (st, diag), counts = counted(lambda: sim.run(output_dir=tmp))
         outs = [o for _, o in sim.steps if o is not None]
         missing = [f"{k}_{n}.vtk" for n in outs for k in ("field", "src")
                    if not os.path.isfile(os.path.join(tmp, f"{k}_{n}.vtk"))]
     its = diag["iterations"]
+    launches = counts["coded_matvec"]
     if diag["unconverged_steps"] or min(its) <= 0:
         raise AssertionError(f"main path did not converge: {its}")
     if not (torch.isfinite(st.A).all() and torch.isfinite(st.carry).all()):
@@ -194,14 +360,14 @@ def phase_main_path(dev):
                              f"{diag['total_iterations']} solver iterations")
     steps = diag["steps"]
     solve_s = diag["wall_s"] - diag["io_s"]
-    say(f"[4] main path 102x102x24 x {steps} steps: "
+    say(f"[5] main path 102x102x24 x {steps} steps: "
         f"{diag['wall_s'] / steps * 1e3:.2f} ms/step with VTK, "
         f"{solve_s / steps * 1e3:.2f} ms/step without "
         f"({len(outs)} outputs, io {diag['io_s']:.2f} s); "
         f"iterations/step {np.mean(its):.1f} {its}; "
         f"{solve_s / diag['total_iterations'] * 1e3:.3f} ms/iteration; "
         f"host blocked on the done read {diag['sync_s'] / solve_s:.1%} of "
-        f"the solve; kernel launches {launches}")
+        f"the solve; kernel launches {counts}")
     return model, launches
 
 
@@ -215,26 +381,20 @@ def _to(state, dev, dtype):
                           prev=State(f(state.prev.A), f(state.prev.U)))
 
 
-def phase_cross_check(model, dev):
-    """The first 5 steps, f32 on the card against f64 on the CPU.
-
-    * Per step: each f32 step starts from the f64 run's state, so it
-      measures one solve; A must agree within 4 tol scale at every step.
-    * Free run: the f32 run carries its own state.  After one step it must
-      agree within 4 tol scale.  The gap then grows as each step's solve
-      error feeds the next step's right-hand side: on this grid the JAX
-      package's own f32 run (flat-roll operator, CPU) sits 4.04 tol scale
-      from its f64 run after 5 steps, so the 5-step bound of the free run
-      is twice that gap, 8 tol scale."""
+def _per_step_gaps(model, dev, n, **kw):
+    """n steps of the float64 CPU run; before each, the float32 card step
+    from the float64 state.  Returns (per-step gaps, the free float32 run's
+    gaps, f32 iterations, f64 iterations, CPU seconds), gaps as
+    max |dA| / (tol scale)."""
     from eddy_currents_3d_tpu_torch import Simulation
 
-    sim32 = Simulation(model, torch.float32, device=dev)
-    sim64 = Simulation(model, torch.float64, device="cpu")
+    sim32 = Simulation(model, torch.float32, device=dev, **kw)
+    sim64 = Simulation(model, torch.float64, device="cpu", **kw)
     s32, s64 = sim32.init_state(), sim64.init_state()
     tol = model.solver.tolerance
     step_ratios, ratios, its32, its64 = [], [], [], []
     t_cpu = 0.0
-    for t, _ in sim32.steps[:5]:
+    for t, _ in sim32.steps[:n]:
         f32, if32 = sim32._step(_to(s64, dev, torch.float32), t)
         s32, i32 = sim32._step(s32, t)
         t0 = time.perf_counter()
@@ -248,9 +408,27 @@ def phase_cross_check(model, dev):
         step_ratios.append((f32.A.cpu().double() - s64.A).abs().max().item()
                            / scale)
         ratios.append((s32.A.cpu().double() - s64.A).abs().max().item() / scale)
-    fmt = lambda rs: " ".join(f"{r:.2f}" for r in rs)
-    say(f"[5] f32 cuda vs f64 cpu, max |dA| / (tol scale): per step from the "
-        f"f64 state {fmt(step_ratios)} (limit 4); free run {fmt(ratios)} "
+    return step_ratios, ratios, its32, its64, t_cpu
+
+
+def _fmt(rs):
+    return " ".join(f"{r:.2f}" for r in rs)
+
+
+def phase_cross_check(model, dev):
+    """The first 5 steps, f32 on the card against f64 on the CPU.
+
+    * Per step: each f32 step starts from the f64 run's state, so it
+      measures one solve; A must agree within 4 tol scale at every step.
+    * Free run: the f32 run carries its own state.  After one step it must
+      agree within 4 tol scale.  The gap then grows as each step's solve
+      error feeds the next step's right-hand side: on this grid the JAX
+      package's own f32 run (flat-roll operator, CPU) sits 4.04 tol scale
+      from its f64 run after 5 steps, so the 5-step bound of the free run
+      is twice that gap, 8 tol scale."""
+    step_ratios, ratios, its32, its64, t_cpu = _per_step_gaps(model, dev, 5)
+    say(f"[6] f32 cuda vs f64 cpu, max |dA| / (tol scale): per step from the "
+        f"f64 state {_fmt(step_ratios)} (limit 4); free run {_fmt(ratios)} "
         f"(limits 4 after step 1, 8 after step 5); iterations f32 {its32} "
         f"f64 {its64}; cpu f64 steps {t_cpu:.1f} s")
     if not (max(step_ratios) <= 4.0 and ratios[0] <= 4.0
@@ -260,20 +438,88 @@ def phase_cross_check(model, dev):
 
 
 def phase_scale(rec, dev):
+    """256x256x64 on both routes.  Returns the split pair's launch counts
+    over the first split run."""
     from eddy_currents_3d_tpu_torch import Simulation
 
-    sim = Simulation(rec["model"], torch.float32, device=dev,
-                     system=rec["system"])
-    st, diag = sim.run(num_steps=3)
-    if diag["unconverged_steps"]:
-        raise AssertionError(f"256x256x64 did not converge: {diag['iterations']}")
-    if not (torch.isfinite(st.A).all() and torch.isfinite(st.carry).all()):
-        raise AssertionError("256x256x64 produced non-finite fields")
-    solve_s = diag["wall_s"]
-    say(f"[6] 256x256x64 x 3 steps: {solve_s / 3 * 1e3:.1f} ms/step, "
-        f"iterations {diag['iterations']}, "
-        f"{solve_s / diag['total_iterations'] * 1e3:.3f} ms/iteration, "
-        f"host blocked on the done read {diag['sync_s'] / solve_s:.1%}")
+    model, sysm = rec["model"], rec["system"]
+    tol = model.solver.tolerance
+    sims = {"split": Simulation(model, torch.float32, device=dev, system=sysm)}
+    zb0, zb1 = sims["split"].coded_op.cond_z
+    if not sims["split"].coded_op.split or zb1 - zb0 != 5:
+        raise AssertionError(f"256x256x64 is not on the split route with 5 "
+                             f"compact planes: cond_z {(zb0, zb1)}")
+    with whole_plane_route():
+        sims["whole"] = Simulation(model, torch.float32, device=dev, system=sysm)
+        if sims["whole"].coded_op.split:
+            raise AssertionError("whole-plane route not taken")
+    route = {"split": contextlib.nullcontext, "whole": whole_plane_route}
+    must = {"split": ("coded_stencil", "coded_slab"), "whole": ("coded_matvec",)}
+
+    def run(name, steps):
+        with route[name]():
+            (st, diag), counts = counted(
+                lambda: sims[name].run(num_steps=steps))
+        if diag["unconverged_steps"]:
+            raise AssertionError(f"256x256x64 {name} did not converge: "
+                                 f"{diag['iterations']}")
+        if not (torch.isfinite(st.A).all() and torch.isfinite(st.carry).all()):
+            raise AssertionError(f"256x256x64 {name} produced non-finite fields")
+        if any(counts[k] == 0 for k in must[name]) or any(
+                counts[k] for k in counts if k not in must[name]):
+            raise AssertionError(f"256x256x64 {name} route launched {counts}")
+        return st, diag, counts
+
+    one = {name: run(name, 1)[0] for name in ("split", "whole")}
+    scale = tol * one["whole"].A.abs().max().item()
+    gap1 = (one["split"].A - one["whole"].A).abs().max().item() / scale
+    runs = [(name, run(name, 5)) for name in ("split", "whole", "whole", "split")]
+    for name, (st, diag, counts) in runs:
+        wall = diag["wall_s"]
+        say(f"[7] 256x256x64 {name} x 5 steps: {wall / 5 * 1e3:.2f} ms/step, "
+            f"iterations {diag['iterations']}, "
+            f"{wall / diag['total_iterations'] * 1e3:.3f} ms/iteration, "
+            f"host blocked on the done read {diag['sync_s'] / wall:.1%}; "
+            f"launches {counts}")
+    last = {name: st for name, (st, _, _) in runs}
+    gap5 = (last["split"].A - last["whole"].A).abs().max().item() / (
+        tol * last["whole"].A.abs().max().item())
+    say(f"[7] split vs whole max |dA| / (tol scale): {gap1:.3f} after step 1 "
+        f"(limit 4), {gap5:.3f} after step 5; compact U planes {zb0}..{zb1 - 1}")
+    if not gap1 <= 4.0:
+        raise AssertionError(f"split and whole-plane routes differ by "
+                             f"{gap1:.3f} tol scale after step 1")
+    return runs[0][1][2]
+
+
+def phase_precond(model, dev):
+    """team7 with cheb_jacobi (order 8) and jacobi: 20 steps each, then the
+    jacobi per-step check against the f64 CPU state."""
+    from eddy_currents_3d_tpu_torch import Simulation
+
+    for kw in ({"precond": "cheb_jacobi", "cheb_order": 8},
+               {"precond": "jacobi"}):
+        sim = Simulation(model, torch.float32, device=dev, **kw)
+        (st, diag), counts = counted(lambda: sim.run())
+        its = diag["iterations"]
+        if diag["unconverged_steps"] or min(its) <= 0:
+            raise AssertionError(f"{kw} did not converge: {its}")
+        if not torch.isfinite(st.A).all() or counts["coded_matvec"] == 0:
+            raise AssertionError(f"{kw}: non-finite A or no kernel launch")
+        wall = diag["wall_s"]
+        say(f"[8] team7 {kw} x {diag['steps']} steps: "
+            f"{wall / diag['steps'] * 1e3:.2f} ms/step, iterations/step "
+            f"{np.mean(its):.2f} {its}, "
+            f"{wall / diag['total_iterations'] * 1e3:.3f} ms/iteration, host "
+            f"blocked on the done read {diag['sync_s'] / wall:.1%}; "
+            f"launches {counts}")
+    step_ratios, _, its32, its64, t_cpu = _per_step_gaps(model, dev, 3,
+                                                         precond="jacobi")
+    say(f"[8] jacobi f32 cuda steps from the f64 cpu state, max |dA| / "
+        f"(tol scale): {_fmt(step_ratios)} (limit 4); iterations f32 "
+        f"{its32} f64 {its64}; cpu f64 steps {t_cpu:.1f} s")
+    if not max(step_ratios) <= 4.0:
+        raise AssertionError(f"jacobi f32 vs f64 out of bounds: {step_ratios}")
 
 
 def main() -> int:
@@ -284,30 +530,37 @@ def main() -> int:
     from eddy_currents_3d_tpu_torch.testing.cases import (case_convection,
                                                           case_static)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     card = phase_device()
     phase_build()
     grids = [
         ("team7", case_static(shape_xyz=(102, 102, 24), steps=3)),
         ("convection", case_convection(shape_xyz=(48, 24, 16), steps=3)),
-        ("scale256", case_static(shape_xyz=(256, 256, 64), steps=3)),
+        ("scale256", case_static(shape_xyz=(256, 256, 64), steps=5)),
     ]
     recs = phase_kernel_vs_plain(grids, dev)
-    model, launches = phase_main_path(dev)
+    split_recs = phase_split_vs_plain([grids[2], grids[1]], dev)
+    model, matvec_launches = phase_main_path(dev)
     phase_cross_check(model, dev)
-    phase_scale(recs["scale256"], dev)
+    split_counts = phase_scale(recs["scale256"], dev)
+    phase_precond(model, dev)
 
-    team7 = recs["team7"]
-    say(json.dumps({"kernels": [{
-        "name": "coded_matvec",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": team7["max_abs_err"],
-        "ms": team7["times"]["apply_dots"][0],
-        "plain_ms": team7["times"]["apply_dots"][1],
-    }]}))
+    def record(name, launches, rec, mode):
+        return {"name": name, "route": "cuda", "source": KERNELS[name][0],
+                "replaces": KERNELS[name][1], "launches": launches,
+                "max_abs_err": rec["max_abs_err"],
+                "ms": rec["times"][mode][0], "plain_ms": rec["times"][mode][1]}
+
+    kernels = [record("coded_matvec", matvec_launches, recs["team7"],
+                      "apply_dots")]
+    for name in ("coded_stencil", "coded_slab"):
+        rec = dict(split_recs["scale256"][name])
+        rec["max_abs_err"] = max(r[name]["max_abs_err"]
+                                 for r in split_recs.values())
+        kernels.append(record(name, split_counts[name], rec, "apply_dots"))
+    say(f"[9] whole run {time.perf_counter() - t_start:.1f} s")
+    say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

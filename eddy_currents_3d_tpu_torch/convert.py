@@ -53,11 +53,14 @@ def state_from_numpy(A, U, carry, prev_A=None, prev_U=None,
 
 
 def coded_from_jax_arrays(code_p, cf_p, conv_p, shape_zyx, *, consts,
+                          cond_z, compact_u: bool,
                           inertia_on_faces: bool = False,
                           device) -> CodedStencilOperator:
     """Crop the lane/sublane padding off a JAX ``CodedStencilOperator``'s
     arrays (``code_p``, ``cf_p``, ``conv_p``, which has shape (3, 0, 0, 0)
-    without convection) and return this package's operator."""
+    without convection) and return this package's operator.  ``cond_z``
+    and ``compact_u`` are the JAX operator's: with them the port takes the
+    same route and solves in the same space (z-compact U or full)."""
     nz, ny, nx = (int(n) for n in shape_zyx)
 
     def crop(arr, dtype):
@@ -74,4 +77,6 @@ def coded_from_jax_arrays(code_p, cf_p, conv_p, shape_zyx, *, consts,
         shape_zyx=(nz, ny, nx),
         consts=consts,
         inertia_on_faces=bool(inertia_on_faces),
+        cond_z=tuple(int(z) for z in cond_z),
+        compact_u=bool(compact_u),
     )

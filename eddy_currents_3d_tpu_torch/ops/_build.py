@@ -1,10 +1,12 @@
 """Build the package's CUDA sources with ``nvcc`` at first use.
 
 Each ``csrc/<name>.cu`` compiles into a shared library with a plain C
-interface, loaded with ``ctypes``.  The library goes into ``_build/`` inside
-the package (listed in ``.gitignore``) under a name that carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale build
-is never loaded.  A missing ``nvcc`` or a failed build raises.
+interface, loaded with ``ctypes``; the sources share device code through
+the headers ``csrc/*.cuh``.  The library goes into ``_build/`` inside the
+package (listed in ``.gitignore``) under a name that carries a hash of the
+source, the headers and the flags, so an edited source or header is rebuilt
+and a stale build is never loaded.  A missing ``nvcc`` or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -49,7 +51,10 @@ def build_library(name: str) -> tuple[Path, str, float]:
     Returns (library path, compiler log, seconds spent compiling; 0.0 when
     the build was already there)."""
     src = CSRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
     if out.exists():
         return out, "", 0.0

@@ -10,10 +10,12 @@ keeps a warp's neighbour reads on shared cache lines, and cells that do
 not conduct skip the decode and its U, cf and conv reads.  See the source
 note for the rest of the design.
 
-:data:`coded_matvec` serves the coded operator's three entry points.  A
-CPU tensor goes to :func:`~.coded.coded_apply_reference`, the plain torch
-version; a CUDA tensor launches the kernel or raises.  ``launches`` counts
-kernel launches, and only those.
+:data:`coded_matvec` serves the coded operator's three entry points on the
+whole-plane route.  A CPU tensor goes to
+:func:`~.coded.coded_apply_reference`, the plain torch version; a CUDA
+tensor launches the kernel or raises.  ``launches`` counts kernel
+launches, and only those.  :class:`CudaKernel` is what this wrapper shares
+with the split route's (``ops/coded_split_cuda.py``).
 """
 
 from __future__ import annotations
@@ -28,9 +30,14 @@ from ..assembly.stencil import State
 from ._build import load_library
 from .coded import coded_apply_reference
 
-__all__ = ["coded_matvec"]
+__all__ = ["coded_matvec", "CudaKernel", "check_tensors"]
 
 _APPLY, _DOTS, _DIV = 0, 1, 2
+
+
+def ptr(t: Optional[torch.Tensor]):
+    """A tensor's device address for ctypes; None for a missing operand."""
+    return None if t is None else t.data_ptr()
 
 
 @lru_cache(maxsize=16)
@@ -48,25 +55,79 @@ def pack_consts(consts) -> ctypes.Array:
     return (ctypes.c_float * len(vals))(*vals)
 
 
-class _CodedMatvec:
+def check_tensors(dev, checks):
+    """Raise unless each ``(name, tensor, shape, dtype)`` of ``checks`` is
+    a contiguous tensor of that shape and dtype on ``dev``."""
+    for name, t, shape, dtype in checks:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, A on {dev}")
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} of shape {tuple(shape)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+class CudaKernel:
+    """What the wrappers of the hand-written kernels share: the library of
+    ``csrc/<source>.cu``, built at first use; a check, once per device,
+    that the card is Hopper and that the library's ``Consts`` layout is
+    :func:`pack_consts`'s; and ``launches``, the count of kernel launches."""
+
+    source = ""         # csrc/<source>.cu
+    consts_len = ""     # the library's function giving len(Consts)
+
     def __init__(self):
         self.launches = 0
         self._lib = None
         self._checked = set()     # devices whose arch was checked
 
+    def _bind(self, lib):
+        """Declare the argument and result types of ``lib``'s functions."""
+        raise NotImplementedError
+
     def _library(self):
         if self._lib is None:
-            lib = load_library("coded_matvec")
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.coded_matvec_launch.argtypes = [vp] * 10 + [ci] * 5 + [
-                ctypes.POINTER(ctypes.c_float), vp]
-            lib.coded_matvec_launch.restype = ci
-            lib.coded_matvec_num_blocks.argtypes = [ci, ci, ci]
-            lib.coded_matvec_num_blocks.restype = ctypes.c_longlong
-            lib.coded_matvec_consts_len.argtypes = []
-            lib.coded_matvec_consts_len.restype = ci
+            lib = load_library(self.source)
+            getattr(lib, self.consts_len).restype = ctypes.c_int
+            self._bind(lib)
             self._lib = lib
         return self._lib
+
+    def _ready(self, dev, consts):
+        """(library, packed constants) for a launch on ``dev``."""
+        lib = self._library()
+        kc = pack_consts(consts)
+        if dev not in self._checked:
+            cap = torch.cuda.get_device_capability(dev)
+            if cap != (9, 0):
+                raise RuntimeError(
+                    f"the {self.source} kernels are built for sm_90a (Hopper); "
+                    f"{torch.cuda.get_device_name(dev)} is sm_{cap[0]}{cap[1]}")
+            if len(kc) != getattr(lib, self.consts_len)():
+                raise RuntimeError(f"csrc/{self.source}.cu Consts layout "
+                                   "differs from pack_consts")
+            self._checked.add(dev)
+        return lib, kc
+
+    def _raise_on(self, err):
+        if err != 0:
+            raise RuntimeError(f"{self.source} kernel launch failed: CUDA "
+                               f"error {err}")
+        self.launches += 1
+
+
+class _CodedMatvec(CudaKernel):
+    source = "coded_matvec"
+    consts_len = "coded_matvec_consts_len"
+
+    def _bind(self, lib):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.coded_matvec_launch.argtypes = [vp] * 10 + [ci] * 5 + [
+            ctypes.POINTER(ctypes.c_float), vp]
+        lib.coded_matvec_launch.restype = ci
+        lib.coded_matvec_num_blocks.argtypes = [ci, ci, ci]
+        lib.coded_matvec_num_blocks.restype = ctypes.c_longlong
 
     def __call__(self, op, A: torch.Tensor, U: Optional[torch.Tensor] = None,
                  w: Optional[State] = None):
@@ -101,32 +162,13 @@ class _CodedMatvec:
         if w is not None:
             checks += [("w.A", w.A, (3, nz, ny, nx), f32),
                        ("w.U", w.U, (nz, ny, nx), f32)]
-        for name, t, shape, dtype in checks:
-            if t.device != dev:
-                raise ValueError(f"{name} is on {t.device}, A on {dev}")
-            if tuple(t.shape) != shape or t.dtype != dtype:
-                raise ValueError(f"{name} must be {dtype} of shape {shape}, "
-                                 f"got {t.dtype} {tuple(t.shape)}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-        lib = self._library()
-        kc = pack_consts(op.consts)
-        if dev not in self._checked:
-            cap = torch.cuda.get_device_capability(dev)
-            if cap != (9, 0):
-                raise RuntimeError(
-                    "the coded matvec kernel is built for sm_90a (Hopper); "
-                    f"{torch.cuda.get_device_name(dev)} is sm_{cap[0]}{cap[1]}")
-            if len(kc) != lib.coded_matvec_consts_len():
-                raise RuntimeError("csrc/coded_matvec.cu Consts layout "
-                                   "differs from pack_consts")
-            self._checked.add(dev)
+        check_tensors(dev, checks)
+        lib, kc = self._ready(dev, op.consts)
         yA = torch.empty_like(A) if mode != _DIV else None
         yU = torch.empty((nz, ny, nx), dtype=f32, device=dev)
         parts = (torch.empty((lib.coded_matvec_num_blocks(nx, ny, nz), 2),
                              dtype=f32, device=dev)
                  if mode == _DOTS else None)
-        ptr = lambda t: None if t is None else t.data_ptr()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.coded_matvec_launch(
@@ -135,10 +177,7 @@ class _CodedMatvec:
                 ptr(w.U if w is not None else None),
                 ptr(yA), ptr(yU), ptr(parts),
                 nx, ny, nz, mode, int(op.inertia_on_faces), kc, stream)
-        if err != 0:
-            raise RuntimeError(f"coded_matvec kernel launch failed: CUDA "
-                               f"error {err}")
-        self.launches += 1
+        self._raise_on(err)
         if mode == _DIV:
             return yU
         if mode == _APPLY:

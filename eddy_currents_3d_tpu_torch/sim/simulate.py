@@ -11,10 +11,14 @@ restarted BiCGSTAB, then form the post-solve inertial carry
 (EC3D.f90:412-432).
 
 Operator selection follows the JAX package: float32 runs the case-coded
-operator (on CUDA its hand-written kernel, on the CPU its plain torch
-version); float64 runs the flat-roll :class:`StencilOperator`, on the CPU
-only.  Nothing on the CUDA path falls back: an operator, dtype or
-preconditioner that is not ported raises.
+operator (on CUDA its hand-written kernels, on the CPU their plain torch
+versions), whose solver space is z-compact in U on the split route
+(``pad_state``/``unpad_state`` around the solve); float64 runs the
+flat-roll :class:`StencilOperator`, on the CPU only.  The solve is
+BiCGSTABwr, unpreconditioned or right-preconditioned with Jacobi,
+Chebyshev, or Chebyshev on Jacobi, as in the JAX package.  Nothing on the
+CUDA path falls back: an operator, dtype or preconditioner that is not
+ported raises.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..assembly.stencil import State
 from ..models.model import Model
 from ..ops.coded import CodedUnsupported, from_assembled_coded
 from ..solvers.bicgstab import bicgstab_wr
+from ..solvers.chebyshev import bicgstab_wr_cheb
 from .motion import FunctionMotion, MotionState, advance_function, motion_init
 
 __all__ = ["Simulation", "SimState", "StepInfo"]
@@ -89,6 +94,8 @@ class Simulation:
         device,
         system: Optional[AssembledSystem] = None,
         precond: Optional[str] = None,
+        cheb_order: int = 4,
+        cheb_ratio: float = 30.0,
         warm_start: str = "extrapolate",
     ):
         self.device = torch.device(device)
@@ -103,10 +110,12 @@ class Simulation:
             raise ValueError(
                 f"dtype={dtype} is not ported to CUDA: the CUDA path is the "
                 "float32 coded kernel (run float64 with device='cpu')")
-        if precond is not None:
+        if precond in ("mg", "ilu0"):
             raise NotImplementedError(
-                f"precond={precond!r} is not ported yet; only the "
-                "unpreconditioned solve (precond=None) runs")
+                f"precond={precond!r} is not ported yet (ROADMAP.md Queue 1: "
+                "ILU(0) and multigrid come with the field-kernel tier)")
+        if precond not in (None, "cheb", "jacobi", "cheb_jacobi"):
+            raise ValueError(f"unknown preconditioner {precond!r}")
         if warm_start not in ("extrapolate", "previous"):
             raise ValueError(f"unknown warm_start {warm_start!r}")
         self.model = model
@@ -132,6 +141,33 @@ class Simulation:
                         "that serves such models is not ported to CUDA yet"
                     ) from e
         self.op = self.coded_op if self.coded_op is not None else self.system.op
+
+        self.precond = precond
+        self.cheb_order = cheb_order
+        self.cheb_ratio = cheb_ratio
+        if precond == "cheb_jacobi":
+            # Gershgorin bound of the diagonally scaled operator D^-1 A
+            # (similar to A D^-1): max row sum of |a_ij| / d_i, from the
+            # host copies, as the JAX package computes it
+            sysm = self.system
+            ka = np.abs(sysm.np_ka).sum(0)
+            rs_a = ka[None] + np.abs(sysm.np_gu).sum(1)
+            diag_a = np.abs(sysm.np_ka[0])
+            ratio_a = np.where(diag_a[None] > 0,
+                               rs_a / np.maximum(diag_a[None], 1e-300), 0.0)
+            ku0 = np.abs(sysm.np_ku[0])
+            rs_u = np.abs(sysm.np_ku).sum(0) + np.abs(sysm.np_da).sum((0, 1))
+            ratio_u = np.where(ku0 > 0, rs_u / np.maximum(ku0, 1e-300), 0.0)
+            self._scaled_lmax = float(max(ratio_a.max(), ratio_u.max())) * 1.01
+        if precond in ("jacobi", "cheb_jacobi"):
+            # right-Jacobi: solve (A D^-1) y = b, x = D^-1 y, in the
+            # solver space; the residual test stays the original system's
+            d = self.system.op.diagonal()
+            if self.coded_op is not None:
+                d = self.coded_op.pad_state(d)
+                d = State(torch.where(d.A == 0, 1.0, d.A),
+                          torch.where(d.U == 0, 1.0, d.U))
+            self._jac = (d, State(1.0 / d.A, 1.0 / d.U))
 
         self.steps = _schedule(model.tran)
         nx, ny, nz = model.shape_xyz
@@ -239,12 +275,42 @@ class Simulation:
             x0 = State(state.A, state.U)
         tol = torch.tensor(model.solver.tolerance, dtype=self.dtype,
                            device=self.device)
-        # the fused dots are float32; float64 runs the flat-roll operator
-        # with unfused dots
-        mvd = self.coded_op.apply_dots if self.coded_op is not None else None
-        res = bicgstab_wr(self.op.apply, b, x0, tol, model.solver.itmax,
-                          mv_dot=mvd)
-        A_new, U_new = res.x.A, res.x.U
+        coded = self.coded_op
+        if coded is not None:
+            b, x0 = coded.pad_state(b), coded.pad_state(x0)
+        apply_fn = self.op.apply
+        itmax = model.solver.itmax
+        if self.precond == "cheb":
+            lmax = sysm.gershgorin * 1.01
+            res = bicgstab_wr_cheb(apply_fn, b, x0, tol, itmax,
+                                   order=self.cheb_order,
+                                   lmin=lmax / self.cheb_ratio, lmax=lmax)
+            sol = res.x
+        elif self.precond in ("jacobi", "cheb_jacobi"):
+            d, inv = self._jac
+            mul = lambda a, v: State(a.A * v.A, a.U * v.U)
+            scaled = lambda v: apply_fn(mul(inv, v))
+            if self.precond == "cheb_jacobi":
+                lmax = self._scaled_lmax
+                res = bicgstab_wr_cheb(scaled, b, mul(d, x0), tol, itmax,
+                                       order=self.cheb_order,
+                                       lmin=lmax / self.cheb_ratio, lmax=lmax)
+            else:
+                # the fused dots of the right-scaled operator A D^-1 v
+                mvd = ((lambda v, w: coded.apply_dots(mul(inv, v), w))
+                       if coded is not None else None)
+                res = bicgstab_wr(scaled, b, mul(d, x0), tol, itmax,
+                                  mv_dot=mvd)
+            sol = mul(inv, res.x)
+        else:
+            # the fused dots are float32; float64 runs the flat-roll
+            # operator with unfused dots
+            mvd = coded.apply_dots if coded is not None else None
+            res = bicgstab_wr(apply_fn, b, x0, tol, itmax, mv_dot=mvd)
+            sol = res.x
+        if coded is not None:
+            sol = coded.unpad_state(sol)
+        A_new, U_new = sol.A, sol.U
 
         # ---- post-solve inertial carry + surface zeroing (EC3D.f90:412-432)
         carry = torch.where(cond[None], inert[None] * A_new - rhs_A, rhs_A)

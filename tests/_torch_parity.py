@@ -41,3 +41,39 @@ def rand_fields(shape_zyx, cond_mask, seed):
     A = rng.standard_normal((3,) + tuple(shape_zyx))
     U = rng.standard_normal(tuple(shape_zyx)) * np.asarray(cond_mask)
     return A, U
+
+
+def z_face_case(c):
+    """A case whose conductor slab lies ON the z- face of the grid; ``c``
+    is either package's ``testing.cases`` module."""
+    nx, ny, nz = 20, 14, 12
+    geo = np.zeros((nz, ny, nx), np.int64)
+    geo[0:5, 3:ny - 3, 3:nx - 3] = 1          # slab ON the z- face
+    geo[8, 4, 5:nx - 5] = 2                   # one x-directed coil run
+    names = [
+        "plast D=1 C='mu0*35e6'",
+        "coil D=1 SRCx=F",
+        "param tran stop=0.002 step=1e-3",
+        "p2 solver tol=5e-3 itmax=10000 dir=out",
+        "f1 func F=a*cos(p2*f*t) a='100/(dx*dz)' p2='2*pi' f=50 t=t",
+    ]
+    return c.make_vxc_text((nx, ny, nz), 0.004, names, geo.ravel())
+
+
+def z_through_case(c):
+    """A case whose conductor runs through every z plane, so the split
+    route's slab is the whole grid and its stencil kernel owns no plane.
+    For operator checks only: its transient does not converge in either
+    package."""
+    nx, ny, nz = 20, 14, 8
+    geo = np.zeros((nz, ny, nx), np.int64)
+    geo[:, 3:ny - 3, 6:nx - 3] = 1            # slab through every z plane
+    geo[2:6, 3:ny - 3, 2] = 2                 # one y-directed coil run
+    names = [
+        "plast D=1 C='mu0*35e6'",
+        "coil D=1 SRCy=F",
+        "param tran stop=0.002 step=1e-3",
+        "p2 solver tol=5e-3 itmax=10000 dir=out",
+        "f1 func F=a*cos(p2*f*t) a='100/(dx*dz)' p2='2*pi' f=50 t=t",
+    ]
+    return c.make_vxc_text((nx, ny, nz), 0.004, names, geo.ravel())

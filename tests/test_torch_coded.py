@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import CPU, host, pallas_interpret, rand_fields
+from _torch_parity import CPU, host, pallas_interpret, rand_fields, z_face_case
 
 import jax
 import jax.numpy as jnp
@@ -34,21 +34,6 @@ ATOL = 3e-6      # x output scale: f32 in-kernel evaluation vs assembled f64
 DOT_RTOL = 2e-5  # f32 accumulation of the fused dots
 
 
-def _z_face_case(c):
-    nx, ny, nz = 20, 14, 12
-    geo = np.zeros((nz, ny, nx), np.int64)
-    geo[0:5, 3:ny - 3, 3:nx - 3] = 1          # slab ON the z- face
-    geo[8, 4, 5:nx - 5] = 2                   # one x-directed coil run
-    names = [
-        "plast D=1 C='mu0*35e6'",
-        "coil D=1 SRCx=F",
-        "param tran stop=0.002 step=1e-3",
-        "p2 solver tol=5e-3 itmax=10000 dir=out",
-        "f1 func F=a*cos(p2*f*t) a='100/(dx*dz)' p2='2*pi' f=50 t=t",
-    ]
-    return c.make_vxc_text((nx, ny, nz), 0.004, names, geo.ravel())
-
-
 CASES = {
     "static": (lambda c: c.case_static(shape_xyz=(18, 16, 14), steps=2), {}),
     "convection": (lambda c: c.case_convection(shape_xyz=(20, 12, 10), steps=2), {}),
@@ -56,7 +41,7 @@ CASES = {
                          {"inertia_on_faces": True}),
     "custom_bnd": (lambda c: c.case_static(shape_xyz=(16, 14, 12), steps=2),
                    {"bnd": [[-1.0, -0.5], [0.25, -0.95], [0.0, -0.7]]}),
-    "z_face": (_z_face_case, {}),
+    "z_face": (z_face_case, {}),
 }
 
 
@@ -93,11 +78,13 @@ def test_encoding_matches_jax(name):
                                       host(ct.conv))
     assert tuple(cj.consts) == ct.consts
     assert cj.inertia_on_faces == ct.inertia_on_faces
+    assert tuple(cj.cond_z) == ct.cond_z and cj.compact_u == ct.compact_u
     # the JAX operator's padded arrays carried across give the same operator
     cc = convert.coded_from_jax_arrays(
         host(cj.code_p), host(cj.cf_p), host(cj.conv_p), cj.shape_zyx,
-        consts=cj.consts,
+        consts=cj.consts, cond_z=cj.cond_z, compact_u=cj.compact_u,
         inertia_on_faces=cj.inertia_on_faces, device=CPU)
+    assert cc.cond_z == ct.cond_z and cc.compact_u == ct.compact_u
     for f in ("code", "cf"):
         assert torch.equal(getattr(cc, f), getattr(ct, f))
     assert (cc.conv is None) == (ct.conv is None)

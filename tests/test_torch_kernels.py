@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain torch versions, on
-the card.  Every test here needs a CUDA device and nvcc and skips without
-them.  The file imports no jax, so it runs on a machine without it:
+the card: the whole-plane coded matvec and the split route's stencil and
+conductor-slab kernels.  Every test here needs a CUDA device and nvcc and
+skips without them.  The file imports no jax, so it runs on a machine
+without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
@@ -14,9 +16,15 @@ import torch
 
 from eddy_currents_3d_tpu_torch.assembly.assemble import assemble_operator
 from eddy_currents_3d_tpu_torch.assembly.stencil import State
-from eddy_currents_3d_tpu_torch.ops.coded import (coded_apply_reference,
+from eddy_currents_3d_tpu_torch.ops import coded
+from eddy_currents_3d_tpu_torch.ops.coded import (CodedUnsupported,
+                                                  coded_apply_reference,
+                                                  coded_slab_reference,
+                                                  coded_stencil_reference,
                                                   from_assembled_coded)
 from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
+from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (coded_slab,
+                                                             coded_stencil)
 from eddy_currents_3d_tpu_torch.testing import cases
 
 pytestmark = pytest.mark.cuda
@@ -24,10 +32,28 @@ pytestmark = pytest.mark.cuda
 ATOL = 3e-6
 DOT_RTOL = 2e-5
 
+
+
+def _z_through():
+    """A conductor through every z plane: the split route's stencil kernel
+    owns no plane (tests/_torch_parity.py z_through_case, which this file
+    cannot import: it needs jax)."""
+    nx, ny, nz = 20, 14, 8
+    geo = np.zeros((nz, ny, nx), np.int64)
+    geo[:, 3:ny - 3, 6:nx - 3] = 1
+    geo[2:6, 3:ny - 3, 2] = 2
+    names = ["plast D=1 C='mu0*35e6'", "coil D=1 SRCy=F",
+             "param tran stop=0.002 step=1e-3",
+             "p2 solver tol=5e-3 itmax=10000 dir=out",
+             "f1 func F=a*cos(p2*f*t) a='100/(dx*dz)' p2='2*pi' f=50 t=t"]
+    return cases.make_vxc_text((nx, ny, nz), 0.004, names, geo.ravel())
+
+
 CASES = {
     "static": lambda: cases.case_static(shape_xyz=(40, 36, 20), steps=2),
     "convection": lambda: cases.case_convection(shape_xyz=(24, 12, 10), steps=2),
     "inertia_on_faces": lambda: cases.case_static(shape_xyz=(33, 17, 12), steps=2),
+    "z_through": _z_through,
 }
 
 
@@ -122,3 +148,134 @@ def test_simulation_runs_through_the_kernel(cuda):
     assert torch.isfinite(st.A).all() and torch.isfinite(st.carry).all()
     with pytest.raises(ValueError, match="not ported to CUDA"):
         Simulation(model, torch.float64, device=cuda)
+
+
+# ---- the split route: stencil kernel + conductor-slab kernel ----
+
+def _split_ref(op, x, w=None):
+    """The split pair's plain versions: (yA, compact yU[, dots])."""
+    zb0, zb1 = op.cond_z
+    Uc = x.U[zb0:zb1]
+    rA = coded_stencil_reference(x.A, op.consts, op.cond_z)
+    out = coded_slab_reference(x.A, Uc, op.code, op.cf, op.conv, op.consts,
+                               op.inertia_on_faces, op.cond_z,
+                               None if w is None else State(w.A, w.U[zb0:zb1]))
+    rA[:, zb0:zb1] = out[0]
+    return (rA,) + tuple(out[1:])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_split_apply_matches_plain(cuda, name):
+    op, x, _ = _setup(name, cuda)
+    zb0, zb1 = op.cond_z
+    n_st, n_sl, n_mv = coded_stencil.launches, coded_slab.launches, coded_matvec.launches
+    yA = coded_stencil(op, x.A)
+    yU = coded_slab(op, x.A, x.U[zb0:zb1], yA)
+    torch.cuda.synchronize()
+    # the stencil kernel launches only when it owns a plane
+    owns = op.shape_zyx[0] > zb1 - zb0
+    assert (coded_stencil.launches, coded_slab.launches) == (n_st + owns, n_sl + 1)
+    assert coded_matvec.launches == n_mv
+    rA, rU = _split_ref(op, x)
+    scale = rA.abs().max().item()
+    _close(yA, rA, scale)
+    _close(yU, rU, max(rU.abs().max().item(), scale))
+    # the pair computes the whole-plane kernel's matvec
+    mA, mU = coded_matvec(op, x.A, x.U)
+    _close(yA, mA, scale)
+    _close(yU, mU[zb0:zb1], max(rU.abs().max().item(), scale))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_split_apply_dots_matches_plain(cuda, name):
+    op, x, w = _setup(name, cuda)
+    zb0, zb1 = op.cond_z
+    Uc, wc = x.U[zb0:zb1], State(w.A, w.U[zb0:zb1])
+    yA, pw_a, py_a = coded_stencil(op, x.A, w.A)
+    yU, pw_b, py_b = coded_slab(op, x.A, Uc, yA, wc)
+    zA = coded_stencil(op, x.A)
+    zU = coded_slab(op, x.A, Uc, zA)
+    assert torch.equal(yA, zA) and torch.equal(yU, zU)
+    rA, rU = _split_ref(op, x)
+    _close(yA, rA, rA.abs().max().item())
+    own = torch.cat([torch.arange(0, zb0), torch.arange(zb1, op.shape_zyx[0])])
+    own = own.to(cuda)
+    for (pw, py), parts in (
+            ((pw_a, py_a), [(yA[:, own], w.A[:, own])]),
+            ((pw_b, py_b), [(yA[:, zb0:zb1], w.A[:, zb0:zb1]), (yU, wc.U)])):
+        ref_w = sum(float((a.double() * b.double()).sum()) for a, b in parts)
+        ref_y = sum(float((a.double() ** 2).sum()) for a, _ in parts)
+        assert abs(float(pw) - ref_w) < DOT_RTOL * max(abs(ref_w), 1.0)
+        assert abs(float(py) - ref_y) < DOT_RTOL * max(abs(ref_y), 1.0)
+    # no atomics: the partials repeat bit for bit
+    _, pw2, py2 = coded_stencil(op, x.A, w.A)
+    _, pw3, py3 = coded_slab(op, x.A, Uc, torch.empty_like(x.A), wc)
+    assert (float(pw2), float(py2)) == (float(pw_a), float(py_a))
+    assert (float(pw3), float(py3)) == (float(pw_b), float(py_b))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_split_apply_div_matches_plain(cuda, name):
+    op, x, _ = _setup(name, cuda)
+    zb0, zb1 = op.cond_z
+    d = coded_slab(op, x.A)
+    r = coded_slab_reference(x.A, None, op.code, op.cf, op.conv, op.consts,
+                             op.inertia_on_faces, op.cond_z)
+    _close(d, r, max(r.abs().max().item(), 1.0))
+    _close(d, coded_matvec(op, x.A)[zb0:zb1], max(r.abs().max().item(), 1.0))
+
+
+def test_split_wrappers_reject_bad_inputs(cuda):
+    op, x, w = _setup("static", cuda)
+    zb0, zb1 = op.cond_z
+    Uc = x.U[zb0:zb1]
+    yA = torch.empty_like(x.A)
+    with pytest.raises(ValueError, match="shape"):
+        coded_slab(op, x.A, x.U, yA)                      # full-shape U
+    with pytest.raises(ValueError, match="float32"):
+        coded_stencil(op, x.A.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        coded_slab(op, x.A, Uc.transpose(1, 2).contiguous().transpose(1, 2),
+                   yA)
+    with pytest.raises(ValueError, match="is on"):
+        coded_slab(op, x.A, Uc.cpu(), yA)
+    with pytest.raises(ValueError, match="yA"):
+        coded_slab(op, x.A, Uc)
+    import dataclasses
+    bad = dataclasses.replace(op, cond_z=(zb1, zb0))
+    with pytest.raises(ValueError, match="conductor planes"):
+        coded_stencil(bad, x.A)
+
+
+def test_simulation_runs_through_the_split_kernels(cuda, monkeypatch):
+    from eddy_currents_3d_tpu_torch import Simulation
+    model = cases.load_case(cases.case_static(shape_xyz=(20, 20, 12), steps=3))
+    whole, _ = Simulation(model, torch.float32, device=cuda).run()
+    monkeypatch.setattr(coded, "_WHOLE_PLANE_BUDGET", 0)
+    for precond in (None, "jacobi", "cheb_jacobi"):
+        sim = Simulation(model, torch.float32, device=cuda, precond=precond,
+                         cheb_order=8)
+        assert sim.coded_op.split
+        n = (coded_stencil.launches, coded_slab.launches, coded_matvec.launches)
+        st, diag = sim.run()
+        assert not diag["unconverged_steps"]
+        assert coded_stencil.launches > n[0] and coded_slab.launches > n[1]
+        assert coded_matvec.launches == n[2]          # no whole-plane fallback
+        tol = model.solver.tolerance
+        scale = whole.A.abs().max().item()
+        assert (st.A - whole.A).abs().max().item() <= 4 * tol * scale
+        assert not torch.any(st.U[~sim.system.cond_mask])
+
+
+def test_unported_cuda_options_raise(cuda):
+    from eddy_currents_3d_tpu_torch import Simulation
+    model = cases.load_case(cases.case_static(shape_xyz=(12, 12, 12), steps=2))
+    for precond in ("mg", "ilu0"):
+        with pytest.raises(NotImplementedError, match=precond):
+            Simulation(model, torch.float32, device=cuda, precond=precond)
+    with pytest.raises(ValueError, match="not ported to CUDA"):
+        Simulation(model, torch.float64, device=cuda, precond="jacobi")
+    text = cases.case_static(shape_xyz=(12, 12, 12), steps=2).replace(
+        "C='mu0*35260000.0'", "C=0")
+    with pytest.raises(CodedUnsupported, match="no conducting"):
+        Simulation(cases.load_case(text), torch.float32, device=cuda)
