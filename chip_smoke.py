@@ -6,8 +6,9 @@
 Phases, each printed before the last line:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the kernels' two sources (csrc/coded_matvec.cu, csrc/coded_split.cu)
-   with nvcc, both at once, and load them;
+2. build the kernels' three sources (csrc/coded_matvec.cu,
+   csrc/coded_split.cu, csrc/field_stencil.cu) with nvcc, all at once, and
+   load them;
 3. the whole-plane kernel (coded_matvec) against its plain torch version on
    the card, for apply, apply_dots and apply_div, on case_static
    102x102x24, a small case_convection and case_static 256x256x64, with the
@@ -35,16 +36,38 @@ Phases, each printed before the last line:
 8. team7 (102x102x24) preconditioned, 20 steps each with cheb_jacobi
    (order 8) and with jacobi: every step converges; then 3 jacobi steps on
    the card, each taken from the float64 CPU jacobi state, within 4 tol
-   scale.
+   scale;
+9. the field tier's kernels (field_a, field_u; csrc/field_stencil.cu)
+   against their plain versions on the card, with float32 and bfloat16
+   coefficients, on team7, the small case_convection (whose moving
+   conductor puts the convection terms into ka), a no-conductor model of
+   team7's size (field_a only) and case_static 256x256x64, within 3e-6 x
+   output scale; microseconds per call (CUDA events, 50 calls), the plain
+   version's time, and bytes per call against the 3.35 TB/s peak;
+10. team7 on the field tier, 20 steps each: use_coded=False
+   unpreconditioned, coeff_dtype=bfloat16 with cheb_jacobi order 8, and
+   precond="mg": every step converges, A is finite, field_a launches at
+   least 2 x the solver iterations and no coded kernel launches; then 3 mg
+   steps on the card, each from the float64 CPU mg state, within 4 tol
+   scale;
+11. scale: 256x256x64 with use_coded=False against the split route, 5
+   steps each in turns (field, split, split, field); 128x128x64 (1.05M
+   cells) with precond="mg", 3 steps; and precond="mg" at 256x256x64
+   raises MgUnsupported;
+12. the no-conductor model on the card (it raised CodedUnsupported before
+   the field tier was ported): 5 steps converge through field_a alone.
 
 Any failure raises and the exit code is not 0.  The line before the last
-is the kernels' JSON record, each kernel's launches counted over the main
-path it serves (phase 5 for coded_matvec, phase 7's first split run for
-the split pair); the last line is {"ok": true, "device": {...}}.  Without
-a CUDA device the script exits 1 and prints no result.
+is the card's name and power limit; the one before it the kernels' JSON
+record, each kernel's launches counted over the main path it serves
+(phase 5 for coded_matvec, phase 7's first split run for the split pair,
+phase 10's use_coded=False run for field_a and field_u); the last line is
+{"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
+and prints no result.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -58,7 +81,8 @@ import torch
 
 ATOL = 3e-6        # matvec: x output scale (tests/test_torch_coded.py)
 DOT_RTOL = 2e-5    # fused dots, relative to float64 sums
-SOURCES = ("coded_matvec", "coded_split")
+SOURCES = ("coded_matvec", "coded_split", "field_stencil")
+HBM_PEAK = 3.35e12  # B/s, H100 SXM data sheet
 KERNELS = {        # name: (source, TPU kernel it replaces)
     "coded_matvec": ("eddy_currents_3d_tpu_torch/csrc/coded_matvec.cu",
                      "eddy_currents_3d_tpu/ops/pallas_coded.py:405"),
@@ -66,6 +90,10 @@ KERNELS = {        # name: (source, TPU kernel it replaces)
                       "eddy_currents_3d_tpu/ops/pallas_coded.py:602"),
     "coded_slab": ("eddy_currents_3d_tpu_torch/csrc/coded_split.cu",
                    "eddy_currents_3d_tpu/ops/pallas_coded.py:658"),
+    "field_a": ("eddy_currents_3d_tpu_torch/csrc/field_stencil.cu",
+                "eddy_currents_3d_tpu/ops/pallas_stencil.py:136"),
+    "field_u": ("eddy_currents_3d_tpu_torch/csrc/field_stencil.cu",
+                "eddy_currents_3d_tpu/ops/pallas_stencil.py:206"),
 }
 
 
@@ -94,8 +122,9 @@ def wrappers():
     from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
     from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (coded_slab,
                                                                  coded_stencil)
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
     return {"coded_matvec": coded_matvec, "coded_stencil": coded_stencil,
-            "coded_slab": coded_slab}
+            "coded_slab": coded_slab, "field_a": field_a, "field_u": field_u}
 
 
 def counted(fn):
@@ -148,7 +177,7 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 say("    ptxas:", line.strip())
-    say(f"[2] both builds took {wall:.2f} s of wall time")
+    say(f"[2] the {len(SOURCES)} builds took {wall:.2f} s of wall time")
 
 
 def _case_ops(text, dev):
@@ -522,13 +551,202 @@ def phase_precond(model, dev):
         raise AssertionError(f"jacobi f32 vs f64 out of bounds: {step_ratios}")
 
 
+def _nocond_text(shape_xyz):
+    """case_static with a non-conducting plate: no conducting cell, so the
+    coded encoder refuses the model and the field tier serves it."""
+    from eddy_currents_3d_tpu_torch.testing.cases import case_static
+
+    text = case_static(shape_xyz=shape_xyz, steps=5)
+    out = text.replace("C='mu0*35260000.0'", "C=0")
+    if out == text:
+        raise AssertionError("no-conductor model: plate conductivity not found")
+    return out
+
+
+def _field_op(sysm, coef):
+    from eddy_currents_3d_tpu_torch.ops.field import FieldStencilOperator
+
+    if coef != torch.float32:
+        sysm = dataclasses.replace(sysm, op=sysm.op.astype(coef))
+    return FieldStencilOperator.from_assembled(sysm)
+
+
+def phase_field_vs_plain(grids, dev):
+    """field_a and field_u against their plain versions, float32 and
+    bfloat16 coefficients.  grids: (name, model, float32 system on dev).
+    Returns {(grid name, coefficient name): {kernel: record}}."""
+    from eddy_currents_3d_tpu_torch.ops.field import (field_a_reference,
+                                                      field_u_reference)
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+
+    out = {}
+    for name, model, sysm in grids:
+        nz, ny, nx = model.shape_zyx
+        cells = nz * ny * nx
+        x, _ = _inputs(model, dev, 2)
+        for cname, coef in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            op = _field_op(sysm, coef)
+            cs = op.ka.element_size()
+            recs = {}
+            # ---- field_a over the grid, the three A components ----
+            ra = field_a_reference(op.ka, x.A)
+            scale = ra.abs().max().item()
+            ya = field_a(op.ka, x.A)
+            err = _maxabs(ya, ra)
+            recs["field_a"] = {
+                "err": err / scale, "max_abs_err": err,
+                "bytes": cells * (7 * cs + 2 * 3 * 4),
+                "times": (cuda_ms(lambda: field_a(op.ka, x.A), 50),
+                          cuda_ms(lambda: field_a_reference(op.ka, x.A), 4))}
+            if op.box is not None:
+                # ---- field_u over the box, adding into yA ----
+                gout, uout = field_u_reference(op.gu, op.ku, op.da, op.box,
+                                               x.A, x.U)
+                z0, z1, y0, y1, x0, x1 = op.box
+                sl = (slice(z0, z1), slice(y0, y1), slice(x0, x1))
+                rA = ya.clone()
+                rA[(slice(None),) + sl] += gout
+                rU = torch.zeros_like(x.U)
+                rU[sl] = uout
+                yA = ya.clone()
+                yU = field_u(op, x.A, x.U, yA)
+                uscale = max(rU.abs().max().item(), scale)
+                err = max(_maxabs(yA, rA), _maxabs(yU, rU))
+                nbox = (z1 - z0) * (y1 - y0) * (x1 - x0)
+                buf = ya.clone()
+                recs["field_u"] = {
+                    "err": max(_maxabs(yA, rA) / scale, _maxabs(yU, rU) / uscale),
+                    "max_abs_err": err,
+                    # 31 coefficients, U, A, yA read and written, yU; plus
+                    # the wrapper's zero fill of the full-grid yU
+                    "bytes": nbox * (31 * cs + 4 + 12 + 24 + 4) + cells * 4,
+                    "times": (cuda_ms(lambda: field_u(op, x.A, x.U, buf), 50),
+                              cuda_ms(lambda: field_u_reference(
+                                  op.gu, op.ku, op.da, op.box, x.A, x.U), 4))}
+            torch.cuda.synchronize()
+            for kname, r in recs.items():
+                k_ms, p_ms = r["times"]
+                say(f"[9] {kname} {name} ({nx}x{ny}x{nz}, {cname} "
+                    f"coefficients): err {r['err']:.2e} of scale; kernel "
+                    f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; "
+                    f"{r['bytes'] / 1e6:.1f} MB/call, "
+                    f"{r['bytes'] / (k_ms * 1e-3) / 1e9:.0f} GB/s = "
+                    f"{r['bytes'] / (k_ms * 1e-3) / HBM_PEAK:.1%} of 3.35 TB/s")
+                if not r["err"] <= ATOL:
+                    raise AssertionError(f"{kname} != plain on {name} "
+                                         f"{cname}: {r['err']:.3e}")
+            out[(name, cname)] = recs
+    return out
+
+
+def _field_run(sim, tag, label):
+    """Run ``sim`` with every count at 0; the field kernels must carry it
+    (field_a >= 2 x iterations) and no coded kernel may launch."""
+    (st, diag), counts = counted(lambda: sim.run())
+    its = diag["iterations"]
+    if diag["unconverged_steps"] or min(its) <= 0:
+        raise AssertionError(f"{label} did not converge: {its}")
+    if not (torch.isfinite(st.A).all() and torch.isfinite(st.carry).all()):
+        raise AssertionError(f"{label} produced non-finite fields")
+    if counts["field_a"] < 2 * diag["total_iterations"] or any(
+            counts[k] for k in ("coded_matvec", "coded_stencil", "coded_slab")):
+        raise AssertionError(f"{label} launched {counts} for "
+                             f"{diag['total_iterations']} iterations")
+    wall = diag["wall_s"]
+    say(f"[{tag}] {label} x {diag['steps']} steps: "
+        f"{wall / diag['steps'] * 1e3:.2f} ms/step, iterations/step "
+        f"{np.mean(its):.2f} {its}, "
+        f"{wall / diag['total_iterations'] * 1e3:.3f} ms/iteration, host "
+        f"blocked on the done read {diag['sync_s'] / wall:.1%}; "
+        f"launches {counts}")
+    return st, diag, counts
+
+
+def phase_field_team7(model, dev):
+    """team7 on the field tier, 20 steps each.  Returns the field kernels'
+    launch counts over the use_coded=False run."""
+    from eddy_currents_3d_tpu_torch import Simulation
+
+    runs = {"use_coded=False": {"use_coded": False},
+            "bf16 cheb_jacobi": {"coeff_dtype": torch.bfloat16,
+                                 "precond": "cheb_jacobi", "cheb_order": 8},
+            "mg": {"precond": "mg"}}
+    counts = {}
+    for label, kw in runs.items():
+        sim = Simulation(model, torch.float32, device=dev, **kw)
+        if sim.coded_op is not None or sim.field_op is None:
+            raise AssertionError(f"team7 {label} is not on the field tier")
+        counts[label] = _field_run(sim, 10, f"team7 {label}")[2]
+    step_ratios, _, its32, its64, t_cpu = _per_step_gaps(model, dev, 3,
+                                                         precond="mg")
+    say(f"[10] mg f32 cuda steps from the f64 cpu state, max |dA| / "
+        f"(tol scale): {_fmt(step_ratios)} (limit 4); iterations f32 "
+        f"{its32} f64 {its64}; cpu f64 steps {t_cpu:.1f} s")
+    if not max(step_ratios) <= 4.0:
+        raise AssertionError(f"mg f32 vs f64 out of bounds: {step_ratios}")
+    return counts["use_coded=False"]
+
+
+def phase_field_scale(rec, dev):
+    """256x256x64 field tier against the split route; 128x128x64 mg; mg
+    refused at 256x256x64."""
+    from eddy_currents_3d_tpu_torch import MgUnsupported, Simulation
+    from eddy_currents_3d_tpu_torch.testing.cases import case_static, load_case
+
+    model, sysm = rec["model"], rec["system"]
+    sims = {"field": Simulation(model, torch.float32, device=dev, system=sysm,
+                                use_coded=False),
+            "split": Simulation(model, torch.float32, device=dev, system=sysm)}
+    if not sims["split"].coded_op.split or sims["field"].field_op is None:
+        raise AssertionError("256x256x64 routes not as expected")
+    for name in ("field", "split", "split", "field"):
+        (st, diag), counts = counted(lambda: sims[name].run(num_steps=5))
+        if diag["unconverged_steps"] or not torch.isfinite(st.A).all():
+            raise AssertionError(f"256x256x64 {name}: {diag['iterations']}")
+        own = ("field_a", "field_u") if name == "field" else (
+            "coded_stencil", "coded_slab")
+        if any(counts[k] == 0 for k in own) or any(
+                counts[k] for k in counts if k not in own):
+            raise AssertionError(f"256x256x64 {name} launched {counts}")
+        wall = diag["wall_s"]
+        say(f"[11] 256x256x64 {name} x 5 steps: {wall / 5 * 1e3:.2f} ms/step, "
+            f"iterations {diag['iterations']}, "
+            f"{wall / diag['total_iterations'] * 1e3:.3f} ms/iteration, "
+            f"host blocked on the done read {diag['sync_s'] / wall:.1%}; "
+            f"launches {counts}")
+    try:
+        Simulation(model, torch.float32, device=dev, system=sysm, precond="mg")
+    except MgUnsupported as e:
+        say(f"[11] 256x256x64 precond='mg' raises MgUnsupported: {e}")
+    else:
+        raise AssertionError("precond='mg' at 256x256x64 did not raise")
+    m128 = load_case(case_static(shape_xyz=(128, 128, 64), steps=3))
+    sim = Simulation(m128, torch.float32, device=dev, precond="mg")
+    _field_run(sim, 11, "128x128x64 mg")
+
+
+def phase_no_conductor(dev):
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.testing.cases import load_case
+
+    sim = Simulation(load_case(_nocond_text((102, 102, 24))), torch.float32,
+                     device=dev)
+    if sim.coded_op is not None or sim.field_op.box is not None:
+        raise AssertionError("no-conductor model not on the field tier")
+    _, _, counts = _field_run(sim, 12, "no-conductor 102x102x24")
+    if counts["field_u"]:
+        raise AssertionError(f"no-conductor model launched field_u: {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA card", file=sys.stderr)
         return 1
+    from eddy_currents_3d_tpu_torch.assembly.assemble import assemble_operator
     from eddy_currents_3d_tpu_torch.testing.cases import (case_convection,
-                                                          case_static)
+                                                          case_static,
+                                                          load_case)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
@@ -545,12 +763,21 @@ def main() -> int:
     phase_cross_check(model, dev)
     split_counts = phase_scale(recs["scale256"], dev)
     phase_precond(model, dev)
+    nocond = load_case(_nocond_text((102, 102, 24)))
+    field_grids = [(name, recs[name]["model"], recs[name]["system"])
+                   for name in ("team7", "convection", "scale256")]
+    field_grids.insert(2, ("no-conductor", nocond, assemble_operator(
+        nocond, torch.float32, dev)))
+    field_recs = phase_field_vs_plain(field_grids, dev)
+    field_counts = phase_field_team7(model, dev)
+    phase_field_scale(recs["scale256"], dev)
+    phase_no_conductor(dev)
 
-    def record(name, launches, rec, mode):
+    def record(name, launches, rec, mode=None):
+        t = rec["times"] if mode is None else rec["times"][mode]
         return {"name": name, "route": "cuda", "source": KERNELS[name][0],
                 "replaces": KERNELS[name][1], "launches": launches,
-                "max_abs_err": rec["max_abs_err"],
-                "ms": rec["times"][mode][0], "plain_ms": rec["times"][mode][1]}
+                "max_abs_err": rec["max_abs_err"], "ms": t[0], "plain_ms": t[1]}
 
     kernels = [record("coded_matvec", matvec_launches, recs["team7"],
                       "apply_dots")]
@@ -559,7 +786,12 @@ def main() -> int:
         rec["max_abs_err"] = max(r[name]["max_abs_err"]
                                  for r in split_recs.values())
         kernels.append(record(name, split_counts[name], rec, "apply_dots"))
-    say(f"[9] whole run {time.perf_counter() - t_start:.1f} s")
+    for name in ("field_a", "field_u"):
+        rec = dict(field_recs[("team7", "f32")][name])
+        rec["max_abs_err"] = max(r[name]["max_abs_err"]
+                                 for r in field_recs.values() if name in r)
+        kernels.append(record(name, field_counts[name], rec))
+    say(f"[13] whole run {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

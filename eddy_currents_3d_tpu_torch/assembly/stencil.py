@@ -179,3 +179,10 @@ class StencilOperator:
             dU[_boxslice(self.box)] = torch.where(
                 ku0 == 0, torch.ones_like(ku0), ku0)
         return State(dA, dU)
+
+    def astype(self, dtype: torch.dtype) -> "StencilOperator":
+        """The operator with its coefficients rounded to ``dtype``.  A
+        bfloat16 operator applied to float32 fields promotes each product
+        to float32, as jnp does, so the state keeps its dtype."""
+        return StencilOperator(self.ka.to(dtype), self.gu.to(dtype),
+                               self.ku.to(dtype), self.da.to(dtype), self.box)

@@ -16,10 +16,23 @@ import torch
 
 from .assembly.stencil import State
 from .ops.coded import CodedStencilOperator
+from .ops.field import FieldStencilOperator
 from .sim.motion import MotionState
 from .sim.simulate import SimState
+from .solvers.multigrid import MGLevel, MGPreconditioner
 
-__all__ = ["state_from_numpy", "coded_from_jax_arrays"]
+__all__ = ["state_from_numpy", "coded_from_jax_arrays",
+           "field_from_jax_arrays", "mg_from_jax_levels"]
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """A numpy array (float32, float64 or ml_dtypes' bfloat16, as JAX hands
+    bfloat16 over) as a tensor of the same dtype on ``device``; a copy."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(arr.view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
 
 
 def state_from_numpy(A, U, carry, prev_A=None, prev_U=None,
@@ -80,3 +93,41 @@ def coded_from_jax_arrays(code_p, cf_p, conv_p, shape_zyx, *, consts,
         cond_z=tuple(int(z) for z in cond_z),
         compact_u=bool(compact_u),
     )
+
+
+def field_from_jax_arrays(ka_p, gu_p, ku_p, da_p, shape_zyx, box_jax,
+                          box_system, device) -> FieldStencilOperator:
+    """Crop the lane/sublane padding off a JAX ``PallasStencilOperator``'s
+    arrays and return this package's operator, in the same dtype (float32
+    or bfloat16).  ``box_jax`` is the JAX operator's ``box``, whose (y, x)
+    origin may have been shifted back to keep the padded window inside the
+    padded grid; ``box_system`` is the assembled system's box (None: no
+    conductor).  The JAX arrays carry ``y0 - y0n`` and ``x0 - x0n`` extra
+    zero rows and columns on the low side, which are cut off here."""
+    nz, ny, nx = (int(n) for n in shape_zyx)
+    ka = _tensor(np.asarray(ka_p)[:, :nz, :ny, :nx], device)
+    if box_system is None:
+        return FieldStencilOperator.without_box(ka, (nz, ny, nx))
+    z0, z1, y0, y1, x0, x1 = (int(b) for b in box_system)
+    _, _, y0n, _, x0n, _ = (int(b) for b in box_jax)
+    ly, lx = y0 - y0n, x0 - x0n
+    win = lambda a: _tensor(
+        np.asarray(a)[..., :, ly:ly + y1 - y0, lx:lx + x1 - x0], device)
+    return FieldStencilOperator(ka, win(gu_p), win(ku_p), win(da_p),
+                                (nz, ny, nx), (z0, z1, y0, y1, x0, x1))
+
+
+def mg_from_jax_levels(levels, inv_du, pre: int, post: int,
+                       coarse_sweeps: int, device) -> MGPreconditioner:
+    """This package's V-cycle from a JAX ``MGPreconditioner``: ``levels``
+    is its levels' ``(ka, inv_d)`` arrays, fine to coarse, and ``inv_du``
+    its U-row scaling, all as numpy arrays; the sweep counts are its own."""
+    lv = []
+    for ka, inv_d in levels:
+        shape = tuple(int(s) for s in np.shape(ka)[1:])
+        lv.append(MGLevel(ka=_tensor(ka, device), inv_d=_tensor(inv_d, device),
+                          shape=shape,
+                          pshape=tuple(s + (s % 2) for s in shape)))
+    return MGPreconditioner(levels=tuple(lv), inv_du=_tensor(inv_du, device),
+                            pre=int(pre), post=int(post),
+                            coarse_sweeps=int(coarse_sweeps))

@@ -14,8 +14,9 @@ note for the rest of the design.
 whole-plane route.  A CPU tensor goes to
 :func:`~.coded.coded_apply_reference`, the plain torch version; a CUDA
 tensor launches the kernel or raises.  ``launches`` counts kernel
-launches, and only those.  :class:`CudaKernel` is what this wrapper shares
-with the split route's (``ops/coded_split_cuda.py``).
+launches, and only those.  :class:`CudaKernel`, :func:`check_tensors` and
+:func:`cuda_only` are what this wrapper shares with the split route's
+(``ops/coded_split_cuda.py``) and the field tier's (``ops/field_cuda.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from ..assembly.stencil import State
 from ._build import load_library
 from .coded import coded_apply_reference
 
-__all__ = ["coded_matvec", "CudaKernel", "check_tensors"]
+__all__ = ["coded_matvec", "CudaKernel", "check_tensors", "cuda_only"]
 
 _APPLY, _DOTS, _DIV = 0, 1, 2
 
@@ -55,6 +56,13 @@ def pack_consts(consts) -> ctypes.Array:
     return (ctypes.c_float * len(vals))(*vals)
 
 
+def cuda_only(name, t):
+    """Raise unless ``t`` lies on a CUDA device (the wrappers send CPU
+    tensors to the plain versions before they call this)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {t.device}")
+
+
 def check_tensors(dev, checks):
     """Raise unless each ``(name, tensor, shape, dtype)`` of ``checks`` is
     a contiguous tensor of that shape and dtype on ``dev``."""
@@ -71,11 +79,12 @@ def check_tensors(dev, checks):
 class CudaKernel:
     """What the wrappers of the hand-written kernels share: the library of
     ``csrc/<source>.cu``, built at first use; a check, once per device,
-    that the card is Hopper and that the library's ``Consts`` layout is
-    :func:`pack_consts`'s; and ``launches``, the count of kernel launches."""
+    that the card is Hopper and (for the coded kernels) that the library's
+    ``Consts`` layout is :func:`pack_consts`'s; and ``launches``, the count
+    of kernel launches."""
 
     source = ""         # csrc/<source>.cu
-    consts_len = ""     # the library's function giving len(Consts)
+    consts_len = None   # the library's function giving len(Consts), if any
 
     def __init__(self):
         self.launches = 0
@@ -89,22 +98,23 @@ class CudaKernel:
     def _library(self):
         if self._lib is None:
             lib = load_library(self.source)
-            getattr(lib, self.consts_len).restype = ctypes.c_int
+            if self.consts_len:
+                getattr(lib, self.consts_len).restype = ctypes.c_int
             self._bind(lib)
             self._lib = lib
         return self._lib
 
-    def _ready(self, dev, consts):
-        """(library, packed constants) for a launch on ``dev``."""
+    def _ready(self, dev, consts=None):
+        """(library, packed constants or None) for a launch on ``dev``."""
         lib = self._library()
-        kc = pack_consts(consts)
+        kc = pack_consts(consts) if consts is not None else None
         if dev not in self._checked:
             cap = torch.cuda.get_device_capability(dev)
             if cap != (9, 0):
                 raise RuntimeError(
                     f"the {self.source} kernels are built for sm_90a (Hopper); "
                     f"{torch.cuda.get_device_name(dev)} is sm_{cap[0]}{cap[1]}")
-            if len(kc) != getattr(lib, self.consts_len)():
+            if kc is not None and len(kc) != getattr(lib, self.consts_len)():
                 raise RuntimeError(f"csrc/{self.source}.cu Consts layout "
                                    "differs from pack_consts")
             self._checked.add(dev)
@@ -140,9 +150,7 @@ class _CodedMatvec(CudaKernel):
             out = coded_apply_reference(A, U, op.code, op.cf, op.conv,
                                         op.consts, op.inertia_on_faces, w)
             return out[1] if U is None else out
-        if A.device.type != "cuda":
-            raise ValueError(f"coded_matvec runs on cpu or cuda tensors, "
-                             f"got {A.device}")
+        cuda_only("coded_matvec", A)
         return self._launch(op, A, U, w)
 
     def _launch(self, op, A, U, w):

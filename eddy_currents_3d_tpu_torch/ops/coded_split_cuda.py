@@ -30,7 +30,7 @@ import torch
 
 from ..assembly.stencil import State
 from .coded import coded_slab_reference, coded_stencil_reference
-from .coded_cuda import CudaKernel, check_tensors, ptr
+from .coded_cuda import CudaKernel, check_tensors, cuda_only, ptr
 
 __all__ = ["coded_stencil", "coded_slab"]
 
@@ -47,11 +47,6 @@ def _slab(op):
     if 3 * nz * ny * nx >= 2 ** 31:
         raise ValueError(f"grid {op.shape_zyx} too large for the kernel")
     return zb0, zb1
-
-
-def _cuda_only(name, A):
-    if A.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda tensors, got {A.device}")
 
 
 class _SplitKernel(CudaKernel):
@@ -80,7 +75,7 @@ class _CodedStencil(_SplitKernel):
         CUDA), or ``(yA, dot(yA, wA), dot(yA, yA))`` over those planes."""
         if A.device.type == "cpu":
             return coded_stencil_reference(A, op.consts, op.cond_z, wA)
-        _cuda_only("coded_stencil", A)
+        cuda_only("coded_stencil", A)
         zb0, zb1 = _slab(op)
         nz, ny, nx = op.shape_zyx
         dev = A.device
@@ -130,7 +125,7 @@ class _CodedSlab(_SplitKernel):
             zb0, zb1 = op.cond_z
             yA[:, zb0:zb1] = out[0]
             return out[1] if w is None else out[1:]
-        _cuda_only("coded_slab", A)
+        cuda_only("coded_slab", A)
         return self._launch(op, A, U_c, yA, w)
 
     def _launch(self, op, A, U_c, yA, w):

@@ -10,19 +10,31 @@ restarted BiCGSTAB, then form the post-solve inertial carry
 ``J = (2C/dt)·A_new - rhs`` that doubles as the eddy-current output field
 (EC3D.f90:412-432).
 
-Operator selection follows the JAX package: float32 runs the case-coded
-operator (on CUDA its hand-written kernels, on the CPU their plain torch
-versions), whose solver space is z-compact in U on the split route
-(``pad_state``/``unpad_state`` around the solve); float64 runs the
-flat-roll :class:`StencilOperator`, on the CPU only.  The solve is
-BiCGSTABwr, unpreconditioned or right-preconditioned with Jacobi,
-Chebyshev, or Chebyshev on Jacobi, as in the JAX package.  Nothing on the
-CUDA path falls back: an operator, dtype or preconditioner that is not
-ported raises.
+Operator selection follows the JAX package (single device).  float32
+runs one of two tiers, on CUDA through hand-written kernels and on the CPU
+through their plain torch versions:
+
+* the case-coded operator (``ops/coded.py``), whose solver space is
+  z-compact in U on the split route (``pad_state``/``unpad_state`` around
+  the solve).  It is taken when ``coeff_dtype`` is None and ``precond`` is
+  not ``"mg"``, unless ``use_coded=False``;
+* the field tier (``ops/field.py``), which streams the assembled
+  coefficients in float32 or bfloat16 (``coeff_dtype``), for every other
+  float32 run: ``precond="mg"``, ``coeff_dtype``, ``use_coded=False``, and
+  models the coded encoder refuses (``CodedUnsupported``) when
+  ``use_coded`` is None.
+
+float64 runs the flat-roll :class:`StencilOperator`, on the CPU only.  The
+solve is BiCGSTABwr, unpreconditioned or right-preconditioned with Jacobi,
+Chebyshev, Chebyshev on Jacobi or the multigrid V-cycle, as in the JAX
+package.  The route choice is not a fallback: both tiers run hand-written
+kernels on the card, a kernel that fails to build or launch raises, and an
+option that is not ported (``precond="ilu0"``) raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time as _time
 from typing import NamedTuple, Optional
 
@@ -33,8 +45,10 @@ from ..assembly.assemble import AssembledSystem, assemble_operator
 from ..assembly.stencil import State
 from ..models.model import Model
 from ..ops.coded import CodedUnsupported, from_assembled_coded
-from ..solvers.bicgstab import bicgstab_wr
+from ..ops.field import FieldStencilOperator
+from ..solvers.bicgstab import bicgstab_wr, bicgstab_wr_right
 from ..solvers.chebyshev import bicgstab_wr_cheb
+from ..solvers.multigrid import build_mg
 from .motion import FunctionMotion, MotionState, advance_function, motion_init
 
 __all__ = ["Simulation", "SimState", "StepInfo"]
@@ -97,6 +111,8 @@ class Simulation:
         cheb_order: int = 4,
         cheb_ratio: float = 30.0,
         warm_start: str = "extrapolate",
+        use_coded: Optional[bool] = None,
+        coeff_dtype: Optional[torch.dtype] = None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -108,13 +124,16 @@ class Simulation:
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
         if self.device.type == "cuda" and dtype != torch.float32:
             raise ValueError(
-                f"dtype={dtype} is not ported to CUDA: the CUDA path is the "
-                "float32 coded kernel (run float64 with device='cpu')")
-        if precond in ("mg", "ilu0"):
+                f"dtype={dtype} is not ported to CUDA: the CUDA kernels take "
+                "float32 state (run float64 with device='cpu')")
+        if coeff_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"coeff_dtype must be None or torch.bfloat16, "
+                             f"got {coeff_dtype}")
+        if precond == "ilu0":
             raise NotImplementedError(
-                f"precond={precond!r} is not ported yet (ROADMAP.md Queue 1: "
-                "ILU(0) and multigrid come with the field-kernel tier)")
-        if precond not in (None, "cheb", "jacobi", "cheb_jacobi"):
+                "precond='ilu0' is not ported yet (ROADMAP.md Queue 1: "
+                "ILU(0) needs the CSR export and a host factorization)")
+        if precond not in (None, "cheb", "jacobi", "cheb_jacobi", "mg"):
             raise ValueError(f"unknown preconditioner {precond!r}")
         if warm_start not in ("extrapolate", "previous"):
             raise ValueError(f"unknown warm_start {warm_start!r}")
@@ -126,21 +145,42 @@ class Simulation:
         if self.system.device != self.device:
             raise ValueError(f"system is on {self.system.device}, "
                              f"simulation on {self.device}")
+        if coeff_dtype is not None:
+            # mixed precision: coefficient streams in bfloat16, state and
+            # accumulation in dtype; the solved operator is A rounded
+            # entrywise to bfloat16
+            self.system = dataclasses.replace(
+                self.system, op=self.system.op.astype(coeff_dtype))
+        self.coeff_dtype = coeff_dtype
 
-        # case-coded operator for float32; the CPU keeps the JAX package's
-        # fallback to the flat-roll operator, CUDA has no other operator
+        # tier choice (JAX simulate.py:230-309, single device): the coded
+        # operator where it applies; the field tier for every other float32
+        # run.  use_coded=None routes CodedUnsupported to the field tier; an
+        # explicit use_coded=True never degrades.
+        coded_ok = (dtype == torch.float32 and coeff_dtype is None
+                    and precond != "mg")
+        if use_coded and not coded_ok:
+            why = (f"coeff_dtype={coeff_dtype}" if coeff_dtype is not None
+                   else "precond='mg'" if precond == "mg"
+                   else f"dtype={dtype}")
+            raise ValueError(
+                f"use_coded=True is incompatible with {why}; the coded "
+                "kernels require float32 state and coefficients")
         self.coded_op = None
-        if dtype == torch.float32:
+        if coded_ok and use_coded is not False:
             try:
                 self.coded_op = from_assembled_coded(self.system, model,
                                                      self.device)
-            except CodedUnsupported as e:
-                if self.device.type == "cuda":
-                    raise CodedUnsupported(
-                        f"{e}; the field-kernel tier (PallasStencilOperator) "
-                        "that serves such models is not ported to CUDA yet"
-                    ) from e
-        self.op = self.coded_op if self.coded_op is not None else self.system.op
+            except CodedUnsupported:
+                if use_coded:
+                    raise
+        self.field_op = (FieldStencilOperator.from_assembled(self.system)
+                         if dtype == torch.float32 and self.coded_op is None
+                         else None)
+        # the solver-space tier (None: float64's flat-roll operator)
+        self._tier = (self.coded_op if self.coded_op is not None
+                      else self.field_op)
+        self.op = self._tier if self._tier is not None else self.system.op
 
         self.precond = precond
         self.cheb_order = cheb_order
@@ -163,11 +203,23 @@ class Simulation:
             # right-Jacobi: solve (A D^-1) y = b, x = D^-1 y, in the
             # solver space; the residual test stays the original system's
             d = self.system.op.diagonal()
-            if self.coded_op is not None:
-                d = self.coded_op.pad_state(d)
-                d = State(torch.where(d.A == 0, 1.0, d.A),
-                          torch.where(d.U == 0, 1.0, d.U))
+            if self._tier is not None:
+                d = self._tier.pad_state(d)
+                d = State(torch.where(d.A == 0, 1.0, d.A).to(dtype),
+                          torch.where(d.U == 0, 1.0, d.U).to(dtype))
             self._jac = (d, State(1.0 / d.A, 1.0 / d.U))
+        if precond == "mg":
+            # geometric V-cycle on the shared A-block stencil, built from
+            # the unpadded coefficients as the JAX package builds it without
+            # Pallas (JAX simulate.py:350-356)
+            op = self.system.op
+            ku0 = np.zeros(tuple(model.shape_zyx))
+            if op.box is not None:
+                z0, z1, y0, y1, x0, x1 = op.box
+                ku0[z0:z1, y0:y1, x0:x1] = op.ku[0].to(
+                    "cpu", torch.float64).numpy()
+            self._mg = build_mg(op.ka, ku0=ku0, dtype=dtype,
+                                device=self.device)
 
         self.steps = _schedule(model.tran)
         nx, ny, nz = model.shape_xyz
@@ -261,7 +313,10 @@ class Simulation:
                 src_values.append(val)
 
         rhs_A = base.reshape((3,) + tuple(model.shape_zyx)) + inert[None] * state.A
-        rhs_U = self.op.apply_div(state.A)
+        # the field tier has no apply_div: its RHS term is the assembled
+        # operator's, as in the JAX package
+        div_op = self.coded_op if self.coded_op is not None else sysm.op
+        rhs_U = div_op.apply_div(state.A)
         rhs_A = torch.where(sysm.bnd_a, 0.0, rhs_A)
         rhs_U = torch.where(self._bnd_u_any, 0.0, rhs_U)
 
@@ -276,8 +331,9 @@ class Simulation:
         tol = torch.tensor(model.solver.tolerance, dtype=self.dtype,
                            device=self.device)
         coded = self.coded_op
-        if coded is not None:
-            b, x0 = coded.pad_state(b), coded.pad_state(x0)
+        tier = self._tier
+        if tier is not None:
+            b, x0 = tier.pad_state(b), tier.pad_state(x0)
         apply_fn = self.op.apply
         itmax = model.solver.itmax
         if self.precond == "cheb":
@@ -302,14 +358,18 @@ class Simulation:
                 res = bicgstab_wr(scaled, b, mul(d, x0), tol, itmax,
                                   mv_dot=mvd)
             sol = mul(inv, res.x)
+        elif self.precond == "mg":
+            res = bicgstab_wr_right(apply_fn, self._mg.apply, b, x0, tol,
+                                    itmax)
+            sol = res.x
         else:
-            # the fused dots are float32; float64 runs the flat-roll
-            # operator with unfused dots
+            # only the coded operator fuses the dots (in float32); the
+            # field tier and float64's flat-roll operator run them apart
             mvd = coded.apply_dots if coded is not None else None
             res = bicgstab_wr(apply_fn, b, x0, tol, itmax, mv_dot=mvd)
             sol = res.x
-        if coded is not None:
-            sol = coded.unpad_state(sol)
+        if tier is not None:
+            sol = tier.unpad_state(sol)
         A_new, U_new = sol.A, sol.U
 
         # ---- post-solve inertial carry + surface zeroing (EC3D.f90:412-432)

@@ -9,6 +9,10 @@ solver (solvers.f90:3-63): unpreconditioned BiCGSTAB, convergence on
 right-hand side, and an iteration budget of ``itmax + 1`` iterations (the
 reference checks ``iter > itmax`` at the top of the loop).
 
+``bicgstab_wr_right`` is the right-preconditioned delta form around it
+(``solvers/bicgstab.py:202`` of the JAX package), shared by the Chebyshev
+and multigrid preconditioners.
+
 Operands are :class:`~..assembly.stencil.State` values or plain tensors;
 dot products reduce over every leaf.  Every scalar of the recurrence stays
 a 0-d device tensor; the loop reads one value on the host per iteration,
@@ -25,7 +29,8 @@ import torch
 
 from ..assembly.stencil import State
 
-__all__ = ["bicgstab_wr", "tree_dot", "tree_norm", "tree_axpy", "SolveResult"]
+__all__ = ["bicgstab_wr", "bicgstab_wr_right", "tree_dot", "tree_norm",
+           "tree_axpy", "SolveResult"]
 
 
 def _leaves(a):
@@ -150,3 +155,36 @@ def bicgstab_wr(
         sync_s += time.perf_counter() - t0
     return SolveResult(x=x, iterations=it, relres=relres, converged=done,
                        sync_s=sync_s)
+
+
+def bicgstab_wr_right(apply_fn: Callable, minv: Callable, b, x0, tol,
+                      itmax: int) -> SolveResult:
+    """Right-preconditioned BiCGSTABwr in delta form for any linear
+    ``minv ~= A^-1`` (Chebyshev, V-cycle, ...).
+
+    Solves ``(A M^-1) dhat = b - A x0`` from zero and returns
+    ``x = x0 + M^-1 dhat``.  The inner tolerance is rescaled by
+    ``||b|| / ||b - A x0||`` so the stop test stays exactly
+    ``||b - A x|| / ||b|| < tol``, the reference criterion
+    (solvers.f90:34-43), and the reported relres is re-expressed relative
+    to ``||b||``.  When the warm start already meets the tolerance (or
+    b = 0) it returns ``x0`` with 0 iterations: one host read of that flag,
+    like the solver's ``done``, decides it before the inner solve starts.
+    """
+    r0 = _map(torch.sub, b, apply_fn(x0))
+    bnorm = tree_norm(b)
+    rnorm = tree_norm(r0)
+    safe_b = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
+    t0 = time.perf_counter()
+    already = bool(rnorm <= tol * bnorm)
+    sync_s = time.perf_counter() - t0
+    if already:
+        return SolveResult(x=x0, iterations=0, relres=rnorm / safe_b,
+                           converged=True, sync_s=sync_s)
+    tol_eff = tol * bnorm / rnorm
+    zero = _map(torch.zeros_like, b)
+    res = bicgstab_wr(lambda v: apply_fn(minv(v)), r0, zero, tol_eff, itmax)
+    x = _map(torch.add, x0, minv(res.x))
+    return SolveResult(x=x, iterations=res.iterations,
+                       relres=res.relres * rnorm / safe_b,
+                       converged=res.converged, sync_s=sync_s + res.sync_s)

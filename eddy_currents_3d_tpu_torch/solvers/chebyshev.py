@@ -13,12 +13,11 @@ the same tolerance.
 
 from __future__ import annotations
 
-import time
 from typing import Callable
 
 import torch
 
-from .bicgstab import SolveResult, _map, bicgstab_wr, tree_norm
+from .bicgstab import SolveResult, _map, bicgstab_wr_right
 
 __all__ = ["chebyshev_preconditioner", "bicgstab_wr_cheb"]
 
@@ -50,33 +49,9 @@ def chebyshev_preconditioner(apply_fn: Callable, order: int, lmin: float,
 
 def bicgstab_wr_cheb(apply_fn: Callable, b, x0, tol, itmax: int, *,
                      order: int, lmin: float, lmax: float) -> SolveResult:
-    """Right-Chebyshev-preconditioned BiCGSTABwr in delta form.
-
-    Solves ``(A M) dhat = b - A x0`` from zero, returns ``x = x0 + M dhat``.
-    The inner tolerance is rescaled by ``||b|| / ||b - A x0||`` so the stop
-    test is exactly ``||b - A x|| / ||b|| < tol`` (the reference criterion);
-    the reported relres is re-expressed relative to ``||b||``.  When the
-    warm start already meets the tolerance (or b = 0) it returns ``x0``
-    with 0 iterations: one host read of that flag, like the solver's
-    ``done``, decides it before the inner solve starts.
-    """
+    """Right-Chebyshev-preconditioned BiCGSTABwr in delta form:
+    :func:`~.bicgstab.bicgstab_wr_right` with the Chebyshev ``M``, so the
+    stop test stays ``||b - A x|| / ||b|| < tol`` and a warm start that
+    already meets it returns ``x0`` with 0 iterations."""
     M = chebyshev_preconditioner(apply_fn, order, lmin, lmax)
-    wrapped = lambda v: apply_fn(M(v))
-
-    r0 = _map(torch.sub, b, apply_fn(x0))
-    bnorm = tree_norm(b)
-    rnorm = tree_norm(r0)
-    safe_b = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
-    t0 = time.perf_counter()
-    already = bool(rnorm <= tol * bnorm)
-    sync_s = time.perf_counter() - t0
-    if already:
-        return SolveResult(x=x0, iterations=0, relres=rnorm / safe_b,
-                           converged=True, sync_s=sync_s)
-    tol_eff = tol * bnorm / rnorm
-    zero = _map(torch.zeros_like, b)
-    res = bicgstab_wr(wrapped, r0, zero, tol_eff, itmax)
-    x = _map(torch.add, x0, M(res.x))
-    return SolveResult(x=x, iterations=res.iterations,
-                       relres=res.relres * rnorm / safe_b,
-                       converged=res.converged, sync_s=sync_s + res.sync_s)
+    return bicgstab_wr_right(apply_fn, M, b, x0, tol, itmax)

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain torch versions, on
-the card: the whole-plane coded matvec and the split route's stencil and
-conductor-slab kernels.  Every test here needs a CUDA device and nvcc and
+the card: the whole-plane coded matvec, the split route's stencil and
+conductor-slab kernels, and the field tier's field_a and field_u (float32
+and bfloat16 coefficients).  Every test here needs a CUDA device and nvcc and
 skips without them.  The file imports no jax, so it runs on a machine
 without it:
 
@@ -9,6 +10,8 @@ without it:
 Tolerances are those of the CPU parity tests (tests/test_torch_coded.py):
 3e-6 of the output scale for the matvec, 2e-5 relative for the fused dots.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -25,6 +28,10 @@ from eddy_currents_3d_tpu_torch.ops.coded import (CodedUnsupported,
 from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
 from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (coded_slab,
                                                              coded_stencil)
+from eddy_currents_3d_tpu_torch.ops.field import (FieldStencilOperator,
+                                                  field_a_reference,
+                                                  field_u_reference)
+from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
 from eddy_currents_3d_tpu_torch.testing import cases
 
 pytestmark = pytest.mark.cuda
@@ -267,15 +274,175 @@ def test_simulation_runs_through_the_split_kernels(cuda, monkeypatch):
         assert not torch.any(st.U[~sim.system.cond_mask])
 
 
+def _nocond_text():
+    return cases.case_static(shape_xyz=(12, 12, 12), steps=2).replace(
+        "C='mu0*35260000.0'", "C=0")
+
+
 def test_unported_cuda_options_raise(cuda):
     from eddy_currents_3d_tpu_torch import Simulation
     model = cases.load_case(cases.case_static(shape_xyz=(12, 12, 12), steps=2))
-    for precond in ("mg", "ilu0"):
-        with pytest.raises(NotImplementedError, match=precond):
-            Simulation(model, torch.float32, device=cuda, precond=precond)
+    with pytest.raises(NotImplementedError, match="ilu0"):
+        Simulation(model, torch.float32, device=cuda, precond="ilu0")
+    with pytest.raises(ValueError, match="precond='mg'"):
+        Simulation(model, torch.float32, device=cuda, precond="mg",
+                   use_coded=True)
     with pytest.raises(ValueError, match="not ported to CUDA"):
         Simulation(model, torch.float64, device=cuda, precond="jacobi")
-    text = cases.case_static(shape_xyz=(12, 12, 12), steps=2).replace(
-        "C='mu0*35260000.0'", "C=0")
     with pytest.raises(CodedUnsupported, match="no conducting"):
-        Simulation(cases.load_case(text), torch.float32, device=cuda)
+        Simulation(cases.load_case(_nocond_text()), torch.float32,
+                   device=cuda, use_coded=True)
+
+
+# ---- the field tier: field_a + field_u, float32 and bfloat16 coefficients ----
+
+FIELD_CASES = {
+    "static": lambda: cases.case_static(shape_xyz=(40, 36, 20), steps=2),
+    "convection": lambda: cases.case_convection(shape_xyz=(24, 12, 10), steps=2),
+    "nocond": _nocond_text,
+    "odd": lambda: cases.case_static(shape_xyz=(21, 19, 11), steps=2),
+}
+COEF = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _field_setup(name, coef, dev, seed=0):
+    model = cases.load_case(FIELD_CASES[name]())
+    sysm = assemble_operator(model, torch.float32, dev)
+    if COEF[coef] != torch.float32:
+        sysm = dataclasses.replace(sysm, op=sysm.op.astype(COEF[coef]))
+    op = FieldStencilOperator.from_assembled(sysm)
+    rng = np.random.default_rng(seed)
+    shape = model.shape_zyx
+    cm = np.asarray(model.cond_mask)
+    f = lambda a: torch.from_numpy(a).to(dev, torch.float32)
+    x = State(f(rng.standard_normal((3,) + shape)),
+              f(rng.standard_normal(shape) * cm))
+    return op, x
+
+
+def _box(op):
+    z0, z1, y0, y1, x0, x1 = op.box
+    return (slice(None), slice(z0, z1), slice(y0, y1), slice(x0, x1))
+
+
+@pytest.mark.parametrize("coef", sorted(COEF))
+@pytest.mark.parametrize("name", sorted(FIELD_CASES))
+def test_field_a_matches_plain(cuda, name, coef):
+    op, x = _field_setup(name, coef, cuda)
+    assert op.ka.dtype == COEF[coef]
+    n0 = field_a.launches
+    y = field_a(op.ka, x.A)
+    torch.cuda.synchronize()
+    assert field_a.launches == n0 + 1
+    r = field_a_reference(op.ka, x.A)
+    assert y.dtype == r.dtype == torch.float32
+    _close(y, r, r.abs().max().item())
+    assert torch.equal(field_a(op.ka, x.A), y)        # repeats bit for bit
+
+
+@pytest.mark.parametrize("coef", sorted(COEF))
+@pytest.mark.parametrize("name", sorted(FIELD_CASES))
+def test_field_u_matches_plain(cuda, name, coef):
+    op, x = _field_setup(name, coef, cuda, seed=1)
+    yA = field_a(op.ka, x.A)
+    if op.box is None:
+        with pytest.raises(ValueError, match="box"):
+            field_u(op, x.A, x.U, yA)
+        return
+    rA = yA.clone()
+    n0 = field_u.launches
+    yU = field_u(op, x.A, x.U, yA)
+    torch.cuda.synchronize()
+    assert field_u.launches == n0 + 1
+    gout, uout = field_u_reference(op.gu, op.ku, op.da, op.box, x.A, x.U)
+    rA[_box(op)] += gout
+    rU = torch.zeros_like(x.U)
+    rU[_box(op)[1:]] = uout
+    scale = rA.abs().max().item()
+    _close(yA, rA, scale)
+    _close(yU, rU, max(rU.abs().max().item(), scale))
+    again = field_a(op.ka, x.A)
+    assert torch.equal(field_u(op, x.A, x.U, again), yU) and torch.equal(again, yA)
+    # the whole apply against the same operator's plain apply on the CPU
+    cpu = dataclasses.replace(op, **{f: getattr(op, f).cpu()
+                                     for f in ("ka", "gu", "ku", "da")})
+    ref = cpu.apply(State(x.A.cpu(), x.U.cpu()))
+    y = op.apply(x)
+    _close(y.A.cpu(), ref.A, scale)
+    _close(y.U.cpu(), ref.U, max(ref.U.abs().max().item(), scale))
+
+
+def test_field_a_on_a_coarse_multigrid_level(cuda):
+    from eddy_currents_3d_tpu_torch.solvers.multigrid import (build_mg,
+                                                               stencil7_apply)
+    op, _ = _field_setup("odd", "f32", cuda)
+    mg = build_mg(op.ka, dtype=torch.float32, device=cuda)
+    assert len(mg.levels) >= 3
+    rng = np.random.default_rng(2)
+    for lvl in mg.levels[1:]:
+        v = torch.from_numpy(rng.standard_normal((3,) + lvl.shape)).to(
+            cuda, torch.float32)
+        n0 = field_a.launches
+        y = stencil7_apply(lvl.ka, v)
+        assert field_a.launches == n0 + 1
+        r = stencil7_apply(lvl.ka.cpu(), v.cpu())    # the flat-roll form
+        _close(y.cpu(), r, r.abs().max().item())
+
+
+def test_field_wrappers_reject_bad_inputs(cuda):
+    op, x = _field_setup("static", "f32", cuda)
+    with pytest.raises(ValueError, match="float32"):
+        field_a(op.ka, x.A.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        field_a(op.ka, x.A.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        field_a(op.ka.half(), x.A)
+    with pytest.raises(ValueError, match="shape"):
+        field_a(op.ka, x.A[:, :-1].contiguous())
+    yA = field_a(op.ka, x.A)
+    with pytest.raises(ValueError, match="share memory"):
+        field_u(op, x.A, x.U, x.A)
+    with pytest.raises(ValueError, match="float32"):
+        field_u(op, x.A, x.U.double(), yA)
+    with pytest.raises(ValueError, match="is on"):
+        field_u(op, x.A, x.U.cpu(), yA)
+
+
+FIELD_RUNS = {
+    "use_coded_false": {"use_coded": False},
+    "bf16_cheb_jacobi": {"coeff_dtype": torch.bfloat16,
+                         "precond": "cheb_jacobi", "cheb_order": 8},
+    "mg": {"precond": "mg"},
+}
+
+
+@pytest.mark.parametrize("run", sorted(FIELD_RUNS))
+def test_simulation_runs_through_the_field_kernels(cuda, run):
+    from eddy_currents_3d_tpu_torch import Simulation
+    model = cases.load_case(cases.case_static(shape_xyz=(20, 20, 12), steps=3))
+    coded_run, _ = Simulation(model, torch.float32, device=cuda).run()
+    sim = Simulation(model, torch.float32, device=cuda, **FIELD_RUNS[run])
+    assert sim.coded_op is None and sim.field_op is not None
+    ks = (field_a, field_u, coded_matvec, coded_stencil, coded_slab)
+    n = [k.launches for k in ks]
+    st, diag = sim.run()
+    d = [k.launches - n0 for k, n0 in zip(ks, n)]
+    assert not diag["unconverged_steps"]
+    assert d[0] >= 2 * diag["total_iterations"] and d[1] > 0
+    assert d[2:] == [0, 0, 0]                         # no coded kernel
+    assert torch.isfinite(st.A).all()
+    if run != "bf16_cheb_jacobi":                      # same operator
+        tol = model.solver.tolerance
+        scale = coded_run.A.abs().max().item()
+        assert (st.A - coded_run.A).abs().max().item() <= 4 * tol * scale
+
+
+def test_no_conductor_model_runs_on_cuda(cuda):
+    from eddy_currents_3d_tpu_torch import Simulation
+    sim = Simulation(cases.load_case(_nocond_text()), torch.float32,
+                     device=cuda)
+    assert sim.coded_op is None and sim.field_op.box is None
+    n = (field_a.launches, field_u.launches)
+    st, diag = sim.run()
+    assert not diag["unconverged_steps"] and torch.isfinite(st.A).all()
+    assert field_a.launches > n[0] and field_u.launches == n[1]

@@ -9,7 +9,7 @@
   (forced as in tests/test_torch_split.py): every step converges and A
   agrees within 4·tol·scale (tests/test_coded.py:230-233).
 * The Chebyshev preconditioner and its warm-start exit match JAX's;
-  ``mg`` and ``ilu0`` still raise.
+  ``ilu0`` still raises, and ``mg`` raises with ``use_coded=True``.
 """
 
 import numpy as np
@@ -141,10 +141,19 @@ def test_cheb_warm_start_already_converged():
     assert float(res.relres) == pytest.approx(float(rj.relres), abs=1e-15)
 
 
+# precond -> (Simulation keywords, the error): ilu0 is not ported; mg is,
+# but never on the coded operator, so an explicit use_coded=True raises
+REFUSED = {
+    "mg": ({"use_coded": True}, ValueError),
+    "ilu0": ({}, NotImplementedError),
+}
+
+
 @pytest.mark.parametrize("precond", ["mg", "ilu0"])
 def test_unported_precond_raises(precond):
     model = tcases.load_case(tcases.case_static(shape_xyz=(12, 12, 12), steps=2))
-    with pytest.raises(NotImplementedError, match=f"precond='{precond}'"):
-        ect.Simulation(model, torch.float32, device=CPU, precond=precond)
+    kw, err = REFUSED[precond]
+    with pytest.raises(err, match=f"precond='{precond}'"):
+        ect.Simulation(model, torch.float32, device=CPU, precond=precond, **kw)
     with pytest.raises(ValueError, match="unknown preconditioner"):
         ect.Simulation(model, torch.float32, device=CPU, precond="ssor")

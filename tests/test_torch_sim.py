@@ -166,8 +166,8 @@ def test_run_writes_outputs(tmp_path):
 
 def test_unported_options_raise():
     model = tcases.load_case(tcases.case_static(shape_xyz=(12, 12, 12), steps=2))
-    with pytest.raises(NotImplementedError, match="precond='mg'"):
-        ect.Simulation(model, torch.float32, device=CPU, precond="mg")
+    with pytest.raises(NotImplementedError, match="precond='ilu0'"):
+        ect.Simulation(model, torch.float32, device=CPU, precond="ilu0")
     with pytest.raises(ValueError, match="warm_start"):
         ect.Simulation(model, torch.float32, device=CPU, warm_start="zero")
     with pytest.raises(TypeError):
