@@ -55,13 +55,46 @@ Phases, each printed before the last line:
    cells) with precond="mg", 3 steps; and precond="mg" at 256x256x64
    raises MgUnsupported;
 12. the no-conductor model on the card (it raised CodedUnsupported before
-   the field tier was ported): 5 steps converge through field_a alone.
+   the field tier was ported): 5 steps converge through field_a alone;
+13. the block-sparse SpMM kernel (bsr_spmm, csrc/bsr_spmm.cu) against its
+   plain version (gather + einsum, TF32 off) on the card: scipy random
+   matrices on a grid that is not a multiple of the block size, (8, 8),
+   (4, 8) and (8, 16) blocks, k in {1, 4, 128}, float32 and float64; and
+   team7's exported operator (to_csr) as (8, 8) float32 blocks at k = 1
+   and k = 128.  Tolerance 3e-6 (float32) and 1e-12 (float64) of
+   max(|B|·|X|): both sides sum at most width·C products, in other orders.
+   For team7: device µs (torch.profiler) and CUDA-event µs over 50 calls,
+   the plain version's µs, bytes and bound, and the library call's µs
+   (torch.sparse_bsr_tensor of scipy's unpadded BSR @ X; the port never
+   calls it);
+14. the matrix-form solve at team7: two consecutive main-path solutions
+   x_{k-1}, x_k (float32 on the card, warm_start="previous") flattened to
+   the reference's [Ax|Ay|Az|U]; bsr_matvec(B, x_k) equals the coded
+   operator's apply within 3e-6 of max(|B|·|x|); BiCGSTABwr on
+   bsr_matvec solves B x = b (b = B x_k in float64 on the host) from
+   x_{k-1}, with the true residual, recomputed in float64 on the host,
+   below tol and bsr_spmm launched at least twice per iteration; then
+   bicgstab_ilu0 on the CSR on the card (the ELL sweep tier) converges
+   too; iterations, ms/iteration and the host setup seconds;
+15. team7 with precond="ilu0", 20 steps on the coded route (full-shape U)
+   and 20 with use_coded=False: every step converges, A is finite,
+   field_a launches at least 8 x the iterations (two preconditioner
+   applies per iteration, each 2 + 2 factor sweeps) and no split kernel
+   launches; the factor operators' field_a/field_u against their plain
+   versions; then 3 ilu0 steps on the card, each from the float64 CPU ilu0
+   state, within 4 tol scale;
+16. device µs per call (torch.profiler) of the five earlier kernels at
+   the shapes of their records, and each kernel's summary: events, device
+   time, bound, plain version and main-path launches.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is the card's name and power limit; the one before it the kernels' JSON
 record, each kernel's launches counted over the main path it serves
 (phase 5 for coded_matvec, phase 7's first split run for the split pair,
-phase 10's use_coded=False run for field_a and field_u); the last line is
+phase 10's use_coded=False run for field_a and field_u, phase 14's BSR
+solve for bsr_spmm), with its bound (bytes over 3.35 TB/s or operations
+over 67 TFLOP/s FP32, the larger) and the library call's time where one
+PyTorch call computes the same function; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -81,8 +114,11 @@ import torch
 
 ATOL = 3e-6        # matvec: x output scale (tests/test_torch_coded.py)
 DOT_RTOL = 2e-5    # fused dots, relative to float64 sums
-SOURCES = ("coded_matvec", "coded_split", "field_stencil")
+SOURCES = ("coded_matvec", "coded_split", "field_stencil", "bsr_spmm",
+           "ilu0_host")
 HBM_PEAK = 3.35e12  # B/s, H100 SXM data sheet
+FP32_PEAK = 67e12   # FLOP/s outside the tensor cores, H100 SXM data sheet
+SPMM_TOL = {torch.float32: 3e-6, torch.float64: 1e-12}
 KERNELS = {        # name: (source, TPU kernel it replaces)
     "coded_matvec": ("eddy_currents_3d_tpu_torch/csrc/coded_matvec.cu",
                      "eddy_currents_3d_tpu/ops/pallas_coded.py:405"),
@@ -94,6 +130,8 @@ KERNELS = {        # name: (source, TPU kernel it replaces)
                 "eddy_currents_3d_tpu/ops/pallas_stencil.py:136"),
     "field_u": ("eddy_currents_3d_tpu_torch/csrc/field_stencil.cu",
                 "eddy_currents_3d_tpu/ops/pallas_stencil.py:206"),
+    "bsr_spmm": ("eddy_currents_3d_tpu_torch/csrc/bsr_spmm.cu",
+                 "eddy_currents_3d_tpu/ops/pallas_sparse.py:39"),
 }
 
 
@@ -117,14 +155,65 @@ def cuda_ms(fn, n):
     return e0.elapsed_time(e1) / n
 
 
+def trace(fn):
+    """(fn(), {kernel: (device µs, launches)}, wall seconds) over one call
+    of ``fn`` ended by a synchronize: the kernels from torch.profiler, the
+    wall time from the host clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            kernels[e.key] = (t if t is not None else e.self_cuda_time_total,
+                              e.count)
+    return out, kernels, wall
+
+
+def device_ms(fn, name, n=20):
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``name`` over ``n`` calls of ``fn``; None when the trace holds no
+    device time for them."""
+    fn()
+    _, kernels, _ = trace(lambda: [fn() for _ in range(n)])
+    hits = [v for k, v in kernels.items() if name in k]
+    total, count = sum(t for t, _ in hits), sum(c for _, c in hits)
+    return total / count / 1e3 if total > 0 and count else None
+
+
+def _busy(kernels, wall, iters):
+    """Device µs per iteration and busy share of a traced run."""
+    dev_s = sum(t for t, _ in kernels.values()) / 1e6
+    if dev_s <= 0:
+        return "device time not measured"
+    return (f"device {dev_s / iters * 1e6:.0f} us/iteration, busy "
+            f"{dev_s / wall:.1%}")
+
+
+def bound(nbytes, ops):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM peak and the FP32 operations over the FP32 peak."""
+    t_b, t_o = nbytes / HBM_PEAK * 1e3, ops / FP32_PEAK * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
 def wrappers():
     """{kernel name: its wrapper}; each wrapper counts its launches."""
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import bsr_spmm
     from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
     from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (coded_slab,
                                                                  coded_stencil)
     from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
     return {"coded_matvec": coded_matvec, "coded_stencil": coded_stencil,
-            "coded_slab": coded_slab, "field_a": field_a, "field_u": field_u}
+            "coded_slab": coded_slab, "field_a": field_a, "field_u": field_u,
+            "bsr_spmm": bsr_spmm}
 
 
 def counted(fn):
@@ -172,6 +261,8 @@ def phase_build():
     wall = time.perf_counter() - t0
     for w in wrappers().values():
         w._library()
+    from eddy_currents_3d_tpu_torch.ops.native import get_lib
+    get_lib()
     for name, (path, log, seconds) in zip(SOURCES, built):
         say(f"[2] built {os.path.relpath(path)} in {seconds:.2f} s")
         for line in log.splitlines():
@@ -274,7 +365,7 @@ def phase_kernel_vs_plain(grids, dev):
         if bad or not dot_err <= DOT_RTOL:
             raise AssertionError(f"kernel != plain on {name}: {bad}, "
                                  f"dots {dot_err:.3e}")
-        out[name] = {"model": model, "system": sysm, "times": t,
+        out[name] = {"model": model, "system": sysm, "op": op, "times": t,
                      "max_abs_err": abs_err}
     return out
 
@@ -738,6 +829,329 @@ def phase_no_conductor(dev):
         raise AssertionError(f"no-conductor model launched field_u: {counts}")
 
 
+def _abs_bound(b, x):
+    """max over outputs of (|B|·|X|), the scale of the SpMM tolerance."""
+    C = b.block_shape[1]
+    gx = x.abs().reshape(-1, C, x.shape[1])[b.block_cols]
+    return torch.einsum("rwij,rwjk->rik", b.blocks.abs(), gx).max().item()
+
+
+def _spmm_check(label, b, x):
+    """The kernel against the plain version; returns |kernel - plain|."""
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import (bsr_spmm,
+                                                         bsr_spmm_reference)
+
+    y = bsr_spmm(b, x)
+    ref = bsr_spmm_reference(b, x)
+    torch.cuda.synchronize()
+    err = _maxabs(y, ref)
+    scale = _abs_bound(b, x)
+    if not err <= SPMM_TOL[b.blocks.dtype] * scale:
+        raise AssertionError(f"bsr_spmm != plain on {label}: {err:.3e} of "
+                             f"scale {scale:.3e}")
+    return err, scale
+
+
+def _sparse_bsr(csr, block_shape, dtype, dev):
+    """torch's own BSR tensor of scipy's unpadded BSR (sorted, unique block
+    columns, as cuSPARSE wants): the library call's operand."""
+    import scipy.sparse as sp
+
+    R, C = block_shape
+    n, m = csr.shape
+    mb = sp.csr_matrix(csr)
+    mb.resize((-(-n // R) * R, -(-m // C) * C))
+    bs = mb.tobsr(blocksize=block_shape)
+    bs.sort_indices()
+    f = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+    return torch.sparse_bsr_tensor(f(bs.indptr, torch.int64),
+                                   f(bs.indices, torch.int64),
+                                   f(bs.data, dtype), size=bs.shape,
+                                   check_invariants=True)
+
+
+def phase_bsr_vs_plain(model, sysm, dev):
+    """bsr_spmm against its plain version, random matrices and team7's
+    exported operator.  Returns (team7 BSR, scipy CSR, host setup seconds,
+    {k: record})."""
+    import scipy.sparse as sp
+
+    from eddy_currents_3d_tpu_torch.assembly.assemble import to_csr
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import (bsr_spmm,
+                                                         bsr_spmm_reference)
+    from eddy_currents_3d_tpu_torch.ops.sparse import bsr_from_scipy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = 0.0
+    rng = np.random.default_rng(13)
+    for seed, block_shape in enumerate(((8, 8), (4, 8), (8, 16))):
+        a = sp.random(4099, 4099, density=0.002,
+                      random_state=np.random.RandomState(seed)).tocsr()
+        a.setdiag(1.0)
+        for dtype in (torch.float32, torch.float64):
+            b = bsr_from_scipy(a, block_shape=block_shape, dtype=dtype,
+                               device=dev)
+            errs = []
+            for k in (1, 4, 128):
+                x = torch.from_numpy(rng.standard_normal((b.shape[1], k))).to(
+                    dev, dtype)
+                err, scale = _spmm_check(f"random {block_shape} k={k}", b, x)
+                errs.append(f"k={k} ({bsr_spmm.route(block_shape, k)}) "
+                            f"{err / scale:.1e}")
+                worst = max(worst, err) if dtype == torch.float32 else worst
+            say(f"[13] bsr_spmm random 4099x4099 {block_shape} "
+                f"{str(dtype)[6:]}: width {b.blocks.shape[1]}, |kernel - "
+                f"plain| / max(|B|·|X|): " + ", ".join(errs))
+
+    t0 = time.perf_counter()
+    csr = to_csr(sysm, model)
+    t_csr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    B = bsr_from_scipy(csr, block_shape=(8, 8), dtype=torch.float32,
+                       device=dev)
+    torch.cuda.synchronize()
+    t_bsr = time.perf_counter() - t0
+    nbr, width = B.block_cols.shape
+    say(f"[13] team7 to_csr: {csr.shape[0]} rows, {csr.nnz} nonzeros, "
+        f"{model.n_cond} conducting cells, {t_csr:.2f} s; bsr_from_scipy "
+        f"(8, 8): {nbr} block rows of width {width}, "
+        f"{B.blocks.numel() * 4 / 1e6:.1f} MB of blocks, {t_bsr:.2f} s")
+    S = _sparse_bsr(csr, (8, 8), torch.float32, dev)
+    recs = {}
+    for k in (1, 128):
+        x = torch.from_numpy(rng.standard_normal((B.shape[1], k))).to(
+            dev, torch.float32)
+        err, scale = _spmm_check(f"team7 k={k}", B, x)
+        worst = max(worst, err)
+        nbytes = (B.blocks.numel() + B.block_cols.numel() + x.numel()
+                  + B.shape[0] * k) * 4
+        ops = 2 * B.blocks.numel() * k
+        b_ms, b_by = bound(nbytes, ops)
+        ms = cuda_ms(lambda: bsr_spmm(B, x), 50)
+        dev_ms = device_ms(lambda: bsr_spmm(B, x), "bsr_")
+        plain_ms = cuda_ms(lambda: bsr_spmm_reference(B, x), 5)
+        try:
+            lib_err = _maxabs(S @ x, bsr_spmm(B, x)) / scale
+            lib_ms = cuda_ms(lambda: S @ x, 50)
+            lib = (f"{lib_ms * 1e3:.2f} us (|lib - kernel| {lib_err:.2e} of "
+                   f"max(|B|·|X|))")
+        except Exception as e:  # the yardstick only: report, do not fail
+            lib_ms, lib = None, f"refused: {type(e).__name__}: {e}"
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us"
+        say(f"[13] bsr_spmm team7 k={k} ({bsr_spmm.route((8, 8), k)} route): "
+            f"err {err / scale:.2e} of max(|B|·|X|); device {dev_txt}, "
+            f"events {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; "
+            f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP, bound "
+            f"{b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.1%} of it); "
+            f"library {lib}")
+        recs[k] = {"times": (ms, plain_ms), "max_abs_err": worst,
+                   "bound": (b_ms, b_by), "library_ms": lib_ms,
+                   "device_ms": dev_ms}
+    return B, csr, (t_csr, t_bsr), recs
+
+
+def _u_cells(model, dev):
+    """The flat cells of the U unknowns in the reference's numbering."""
+    condno = model.cond_number.ravel()
+    order = np.nonzero(condno)[0]
+    return torch.from_numpy(order[np.argsort(condno[order])]).to(dev)
+
+
+def phase_matrix_solve(model, dev, B, csr, setup):
+    """The matrix-form solve at team7.  Returns bsr_spmm's launches over
+    the BSR solve."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.assembly.stencil import State
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import bsr_matvec
+    from eddy_currents_3d_tpu_torch.ops.sparse import from_scipy
+    from eddy_currents_3d_tpu_torch.solvers.bicgstab import bicgstab_wr
+    from eddy_currents_3d_tpu_torch.solvers.ilu0 import (bicgstab_ilu0,
+                                                          ilu0_factorize)
+
+    sim = Simulation(model, torch.float32, device=dev, warm_start="previous")
+    st = sim.init_state()
+    for t, _ in sim.steps[:3]:
+        prev = st
+        st, info = sim._step(st, t)
+        if not info.converged:
+            raise AssertionError("phase 14: main-path step did not converge")
+    cells = _u_cells(model, dev)
+    n = csr.shape[0]
+    pad = B.shape[1] - n          # zero rows and columns up to whole blocks
+    flat = lambda A, U: torch.nn.functional.pad(
+        torch.cat([A.reshape(-1), U.reshape(-1)[cells]]), (0, pad))
+    xk, xk1 = flat(st.A, st.U), flat(prev.A, prev.U)
+
+    y = bsr_matvec(B, xk)
+    ref = sim.coded_op.apply(State(st.A, st.U))
+    err = _maxabs(y, flat(ref.A, ref.U))
+    scale = _abs_bound(B, xk[:, None])
+    say(f"[14] bsr_matvec(B, x_k) vs the coded operator's apply: "
+        f"{err / scale:.2e} of max(|B|·|x|) (limit 3e-6)")
+    if not err <= 3e-6 * scale:
+        raise AssertionError(f"bsr_matvec != coded apply: {err:.3e}")
+
+    x64 = xk[:n].cpu().double().numpy()
+    b64 = csr @ x64
+    b = torch.from_numpy(np.pad(b64, (0, pad))).to(dev, torch.float32)
+    tol = model.solver.tolerance
+    itmax = model.solver.itmax
+    true_res = lambda x: (np.linalg.norm(
+        b64 - csr @ x[:n].cpu().double().numpy()) / np.linalg.norm(b64))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: bicgstab_wr(lambda v: bsr_matvec(B, v), b,
+                                              xk1, tol, itmax))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts["bsr_spmm"]
+    rel = true_res(res.x)
+    say(f"[14] matrix-form BiCGSTABwr on bsr_matvec (team7, from x_(k-1)): "
+        f"{res.iterations} iterations, {wall / max(res.iterations, 1) * 1e3:.3f} "
+        f"ms/iteration, true residual {rel:.3e} (tol {tol}), "
+        f"launches {counts}")
+    if not (res.converged and rel < tol):
+        raise AssertionError(f"matrix-form solve: converged {res.converged}, "
+                             f"true residual {rel:.3e}")
+    if launches < 2 * res.iterations or any(
+            v for k_, v in counts.items() if k_ != "bsr_spmm"):
+        raise AssertionError(f"matrix-form solve launched {counts} for "
+                             f"{res.iterations} iterations")
+    r1, kernels, wall1 = trace(lambda: bicgstab_wr(
+        lambda v: bsr_matvec(B, v), b, xk1, tol, itmax))
+    say(f"[14] the same solve profiled: {r1.iterations} iterations, "
+        f"{_busy(kernels, wall1, r1.iterations)}")
+
+    a = from_scipy(csr, torch.float32, dev)
+    t0 = time.perf_counter()
+    r2 = bicgstab_ilu0(a, b[:n], xk1[:n], tol, itmax)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    rel2 = true_res(r2.x)
+    # the same solve timed apart from its factorization
+    t0 = time.perf_counter()
+    M = ilu0_factorize(a)
+    torch.cuda.synchronize()
+    t_fac = time.perf_counter() - t0
+    minv = lambda v: M.apply(v, sweeps=4)
+    t0 = time.perf_counter()
+    r3 = bicgstab_wr(lambda v: a.matvec(minv(v)), b[:n], M.matvec(xk1[:n]),
+                     tol, itmax)
+    torch.cuda.synchronize()
+    t_it = (time.perf_counter() - t0) / max(r3.iterations, 1)
+    say(f"[14] bicgstab_ilu0 on the CSR (ELL sweeps, 4 per triangle): "
+        f"{r2.iterations} iterations, {wall2:.2f} s with its factorization, "
+        f"{t_it * 1e3:.3f} ms/iteration without it, true residual "
+        f"{rel2:.3e}; host setup to_csr {setup[0]:.2f} s, bsr_from_scipy "
+        f"{setup[1]:.2f} s, ilu0_factorize {t_fac:.2f} s")
+    if not (r2.converged and rel2 < tol):
+        raise AssertionError(f"bicgstab_ilu0: converged {r2.converged}, "
+                             f"true residual {rel2:.3e}")
+    return launches
+
+
+def phase_ilu0(model, dev):
+    """team7 with precond="ilu0", coded and field routes; the factor
+    kernels against their plain versions; the per-step check against the
+    float64 CPU ilu0 state."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.ops.field import (field_a_reference,
+                                                      field_u_reference)
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+
+    for label, kw in (("coded", {}), ("use_coded=False", {"use_coded": False})):
+        t0 = time.perf_counter()
+        sim = Simulation(model, torch.float32, device=dev, precond="ilu0", **kw)
+        t_setup = time.perf_counter() - t0
+        if (sim.coded_op is not None) != (label == "coded") or (
+                sim.coded_op is not None and sim.coded_op.compact_u):
+            raise AssertionError(f"ilu0 {label}: route not as expected")
+        (st, diag), counts = counted(lambda: sim.run())
+        its = diag["iterations"]
+        total = diag["total_iterations"]
+        if diag["unconverged_steps"] or min(its) <= 0:
+            raise AssertionError(f"ilu0 {label} did not converge: {its}")
+        if not torch.isfinite(st.A).all():
+            raise AssertionError(f"ilu0 {label} produced non-finite fields")
+        if counts["field_a"] < 8 * total or counts["coded_stencil"] or \
+                counts["coded_slab"]:
+            raise AssertionError(f"ilu0 {label} launched {counts} for "
+                                 f"{total} iterations")
+        wall = diag["wall_s"]
+        (_, d3), kernels, wall3 = trace(lambda: sim.run(num_steps=3))
+        say(f"[15] team7 ilu0 {label} x {diag['steps']} steps: "
+            f"{wall / diag['steps'] * 1e3:.2f} ms/step, iterations/step "
+            f"{np.mean(its):.2f} {its}, {wall / total * 1e3:.3f} "
+            f"ms/iteration, host blocked on the done read "
+            f"{diag['sync_s'] / wall:.1%}; setup {t_setup:.2f} s; "
+            f"launches {counts}; 3 steps profiled: "
+            f"{_busy(kernels, wall3, d3['total_iterations'])}")
+    x, _ = _inputs(model, dev, 15)
+    errs = []
+    for name, op in (("L", sim._ilu.L_op), ("U", sim._ilu.U_op)):
+        ra = field_a_reference(op.ka, x.A)
+        ya = field_a(op.ka, x.A)
+        gout, uout = field_u_reference(op.gu, op.ku, op.da, op.box, x.A, x.U)
+        z0, z1, y0, y1, x0, x1 = op.box
+        sl = (slice(z0, z1), slice(y0, y1), slice(x0, x1))
+        rA = ra.clone()
+        rA[(slice(None),) + sl] += gout
+        yA = ya.clone()
+        yU = field_u(op, x.A, x.U, yA)
+        scale = rA.abs().max().item()
+        err = max(_maxabs(yA, rA), _maxabs(yU[sl], uout)) / scale
+        errs.append(f"{name} {err:.2e}")
+        if not err <= ATOL:
+            raise AssertionError(f"ilu0 factor {name}: kernels != plain, "
+                                 f"{err:.3e}")
+    say(f"[15] ilu0 factor operators, field_a + field_u vs plain: "
+        + ", ".join(errs) + " of scale (limit 3e-6)")
+    step_ratios, _, its32, its64, t_cpu = _per_step_gaps(model, dev, 3,
+                                                         precond="ilu0")
+    say(f"[15] ilu0 f32 cuda steps from the f64 cpu state, max |dA| / "
+        f"(tol scale): {_fmt(step_ratios)} (limit 4); iterations f32 "
+        f"{its32} f64 {its64}; cpu f64 steps {t_cpu:.1f} s")
+    if not max(step_ratios) <= 4.0:
+        raise AssertionError(f"ilu0 f32 vs f64 out of bounds: {step_ratios}")
+
+
+def phase_device_times(recs, dev):
+    """Device µs per call (torch.profiler, 20 calls) of the five earlier
+    kernels at the shapes their JSON records use."""
+    from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
+    from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (coded_slab,
+                                                                 coded_stencil)
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+
+    out = {}
+    t7 = recs["team7"]
+    op = t7["op"]
+    x, w = _inputs(t7["model"], dev, 0)
+    out["coded_matvec"] = device_ms(lambda: coded_matvec(op, x.A, x.U, w),
+                                    "coded_matvec_kernel")
+    s = recs["scale256"]
+    sop = s["op"]
+    zb0, zb1 = sop.cond_z
+    xs, ws = _inputs(s["model"], dev, 1)
+    Uc = xs.U[zb0:zb1]
+    from eddy_currents_3d_tpu_torch.assembly.stencil import State
+    wc = State(ws.A, ws.U[zb0:zb1])
+    buf = torch.empty_like(xs.A)
+    out["coded_stencil"] = device_ms(lambda: coded_stencil(sop, xs.A, ws.A),
+                                     "stencil_kernel")
+    out["coded_slab"] = device_ms(
+        lambda: coded_slab(sop, xs.A, Uc, buf, wc), "slab_kernel")
+    fop = _field_op(t7["system"], torch.float32)
+    yb = field_a(fop.ka, x.A)
+    out["field_a"] = device_ms(lambda: field_a(fop.ka, x.A), "field_a")
+    out["field_u"] = device_ms(lambda: field_u(fop, x.A, x.U, yb), "field_u")
+    say("[16] device us per call (torch.profiler, 20 calls): " + ", ".join(
+        f"{k} {'not measured' if v is None else f'{v * 1e3:.2f}'}"
+        for k, v in out.items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -772,13 +1186,49 @@ def main() -> int:
     field_counts = phase_field_team7(model, dev)
     phase_field_scale(recs["scale256"], dev)
     phase_no_conductor(dev)
+    t7 = recs["team7"]
+    B, csr, setup, bsr_recs = phase_bsr_vs_plain(t7["model"], t7["system"],
+                                                 dev)
+    bsr_launches = phase_matrix_solve(model, dev, B, csr, setup)
+    del B
+    phase_ilu0(model, dev)
+    dev_times = phase_device_times(recs, dev)
+    dev_times["bsr_spmm"] = bsr_recs[1]["device_ms"]
 
-    def record(name, launches, rec, mode=None):
+    # bytes each function must move (inputs read once, outputs written
+    # once) and its FP32 operations, at the shapes of its record
+    n7 = int(np.prod(t7["model"].shape_zyx))
+    c7 = t7["model"].n_cond
+    s256 = recs["scale256"]["model"]
+    nz, ny, nx = s256.shape_zyx
+    zb0, zb1 = recs["scale256"]["op"].cond_z
+    slab = (zb1 - zb0) * ny * nx
+    own = nz * ny * nx - slab
+    f7 = field_recs[("team7", "f32")]
+    box7 = t7["system"].op.box
+    nbox7 = (box7[1] - box7[0]) * (box7[3] - box7[2]) * (box7[5] - box7[4])
+    bounds = {
+        # apply_dots: A, U, code, cf, w.A, w.U read; yA, yU written
+        "coded_matvec": bound(56 * n7, 2 * (21 * n7 + 31 * c7) + 16 * n7),
+        # apply_dots over the planes outside the slab: A, w.A read, yA written
+        "coded_stencil": bound(36 * own, 42 * own + 12 * own),
+        # apply_dots over the slab: as coded_matvec, on the slab's cells
+        "coded_slab": bound(56 * slab, 2 * (21 * slab + 31 * s256.n_cond)
+                            + 16 * slab),
+        "field_a": bound(f7["field_a"]["bytes"], 2 * 21 * n7),
+        "field_u": bound(f7["field_u"]["bytes"], 2 * 31 * nbox7),
+    }
+
+    def record(name, launches, rec, mode=None, library_ms=None):
         t = rec["times"] if mode is None else rec["times"][mode]
+        b_ms, b_by = rec["bound"] if "bound" in rec else bounds[name]
         return {"name": name, "route": "cuda", "source": KERNELS[name][0],
                 "replaces": KERNELS[name][1], "launches": launches,
-                "max_abs_err": rec["max_abs_err"], "ms": t[0], "plain_ms": t[1]}
+                "max_abs_err": rec["max_abs_err"], "ms": t[0], "plain_ms": t[1],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
+    # no single PyTorch call computes the coded or field operators (their
+    # coefficients vary per cell), so those have no library time
     kernels = [record("coded_matvec", matvec_launches, recs["team7"],
                       "apply_dots")]
     for name in ("coded_stencil", "coded_slab"):
@@ -791,7 +1241,15 @@ def main() -> int:
         rec["max_abs_err"] = max(r[name]["max_abs_err"]
                                  for r in field_recs.values() if name in r)
         kernels.append(record(name, field_counts[name], rec))
-    say(f"[13] whole run {time.perf_counter() - t_start:.1f} s")
+    kernels.append(record("bsr_spmm", bsr_launches, bsr_recs[1],
+                          library_ms=bsr_recs[1]["library_ms"]))
+    for k in kernels:
+        d = dev_times[k["name"]]
+        say(f"[16] {k['name']}: events {k['ms'] * 1e3:.2f} us, device "
+            + ("not measured" if d is None else f"{d * 1e3:.2f} us")
+            + f", bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']}, "
+            f"plain {k['plain_ms'] * 1e3:.2f} us, launches {k['launches']}")
+    say(f"[16] whole run {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -8,18 +8,26 @@ counterpart sits at the same path.  The float32 solve runs the case-coded
 operator, or, for multigrid, bfloat16 coefficients and the models the
 coded encoder refuses, the field tier (``ops/field.py``): on CUDA
 hand-written kernels (``csrc/*.cu``), built with ``nvcc`` at first use; on
-the CPU their plain torch versions.  This package never imports jax.
+the CPU their plain torch versions.  ILU(0) factors the exported CSR
+(``assembly.assemble.to_csr``) on the host (``csrc/ilu0_host.cpp``, built
+with ``g++``).  The general sparse tier (``ops/sparse.py``) holds the
+CSR/COO/ELL/BSR containers, with a hand-written block-sparse SpMM kernel
+(``ops/bsr_cuda.py``).  This package never imports jax.
 """
 
 __version__ = "0.1.0"
 
 from .models.model import Model, DomainSpec, SolverConfig, TranConfig, SourceFunction
 from .models.vxc import read_vxc
-from .assembly.assemble import assemble_operator
+from .assembly.assemble import assemble_operator, to_csr
 from .assembly.stencil import State
 from .ops.coded import CodedStencilOperator, CodedUnsupported, from_assembled_coded
 from .ops.field import FieldStencilOperator
+from .ops.sparse import (BSRMatrix, COOMatrix, CSRMatrix, ELLMatrix,
+                         bsr_from_scipy, from_scipy)
+from .ops.bsr_cuda import bsr_matvec, bsr_spmm
 from .solvers.bicgstab import bicgstab_wr
+from .solvers.ilu0 import ilu0_stencil_factorize
 from .solvers.multigrid import MgUnsupported, build_mg
 from .sim.simulate import Simulation, SimState
 
@@ -31,11 +39,21 @@ __all__ = [
     "SourceFunction",
     "read_vxc",
     "assemble_operator",
+    "to_csr",
     "State",
     "CodedStencilOperator",
     "CodedUnsupported",
     "from_assembled_coded",
     "FieldStencilOperator",
+    "COOMatrix",
+    "CSRMatrix",
+    "ELLMatrix",
+    "BSRMatrix",
+    "from_scipy",
+    "bsr_from_scipy",
+    "bsr_spmm",
+    "bsr_matvec",
+    "ilu0_stencil_factorize",
     "MgUnsupported",
     "build_mg",
     "bicgstab_wr",

@@ -36,7 +36,7 @@ import torch
 from .stencil import StencilOperator
 from ..models.model import Model
 
-__all__ = ["AssembledSystem", "AssemblyError", "assemble_operator"]
+__all__ = ["AssembledSystem", "AssemblyError", "assemble_operator", "to_csr"]
 
 
 class AssemblyError(ValueError):
@@ -354,3 +354,57 @@ def assemble_operator(model: Model, dtype: torch.dtype, device,
         gershgorin=gersh,
         np_ka=ka, np_gu=gu, np_ku=ku, np_da=da,
     )
+
+
+def to_csr(system: AssembledSystem, model: Model):
+    """Export the operator as a scipy CSR matrix in the reference's global
+    numbering [Ax | Ay | Az | U] (EC3D.f90:503, 973-986), from the float64
+    host copies: the general sparse tier's matrix (``ops/sparse.py``) and
+    ILU(0)'s (``solvers/ilu0.py``).  Host numpy/scipy only."""
+    from scipy import sparse
+
+    from .stencil import OFFSETS7
+
+    nz, ny, nx = system.shape_zyx
+    N = nx * ny * nz
+    ncond = model.n_cond
+    ntot = 3 * N + ncond
+    condno = model.cond_number.ravel()          # 1-based local U number
+    u_col_of_cell = 3 * N + condno - 1          # valid where condno > 0
+
+    flat = np.arange(N)
+    stride = {0: 1, 1: nx, 2: nx * ny}
+
+    rows, cols, vals = [], [], []
+
+    def add(r, c, v, keep):
+        rows.append(r[keep]); cols.append(c[keep]); vals.append(v[keep])
+
+    for o, (axis, d) in enumerate(OFFSETS7):
+        coef = system.np_ka[o].ravel()
+        tgt = flat if d == 0 else flat + d * stride[axis]
+        keep = coef != 0.0
+        for c in range(3):
+            add(c * N + flat, c * N + tgt, coef, keep)
+        ucoef = system.np_ku[o].ravel()
+        keep = ucoef != 0.0
+        add(3 * N + condno - 1,
+            u_col_of_cell[np.clip(tgt, 0, N - 1)] if d != 0 else u_col_of_cell,
+            ucoef, keep)
+
+    for c in range(3):
+        for k, d in enumerate((-2, -1, 0, +1, +2)):
+            coef = system.np_gu[c, k].ravel()
+            keep = coef != 0.0
+            tgt = flat + d * stride[c]
+            add(c * N + flat, u_col_of_cell[np.clip(tgt, 0, N - 1)], coef, keep)
+        for k, d in enumerate((-1, 0, +1)):
+            coef = system.np_da[c, k].ravel()
+            keep = coef != 0.0
+            tgt = flat + d * stride[c]
+            add(3 * N + condno - 1, c * N + np.clip(tgt, 0, N - 1), coef, keep)
+
+    rows = np.concatenate(rows)
+    cols = np.concatenate(cols)
+    vals = np.concatenate(vals)
+    return sparse.coo_matrix((vals, (rows, cols)), shape=(ntot, ntot)).tocsr()

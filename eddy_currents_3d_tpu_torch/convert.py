@@ -14,15 +14,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .assembly.stencil import State
+from .assembly.stencil import State, StencilOperator
 from .ops.coded import CodedStencilOperator
 from .ops.field import FieldStencilOperator
+from .ops.sparse import BSRMatrix, CSRMatrix, ELLMatrix
 from .sim.motion import MotionState
 from .sim.simulate import SimState
+from .solvers.ilu0 import StencilILU0
 from .solvers.multigrid import MGLevel, MGPreconditioner
 
 __all__ = ["state_from_numpy", "coded_from_jax_arrays",
-           "field_from_jax_arrays", "mg_from_jax_levels"]
+           "field_from_jax_arrays", "mg_from_jax_levels", "csr_from_jax",
+           "ell_from_jax", "bsr_from_jax", "stencil_ilu0_from_jax"]
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -131,3 +134,55 @@ def mg_from_jax_levels(levels, inv_du, pre: int, post: int,
     return MGPreconditioner(levels=tuple(lv), inv_du=_tensor(inv_du, device),
                             pre=int(pre), post=int(post),
                             coarse_sweeps=int(coarse_sweeps))
+
+
+# The sparse containers and ILU(0) factors below take the JAX objects
+# themselves and read each array with ``numpy.asarray``, which needs no jax.
+
+def _shape(shape) -> tuple:
+    return tuple(int(n) for n in shape)
+
+
+def csr_from_jax(a, device) -> CSRMatrix:
+    """A JAX ``CSRMatrix`` as this package's, on ``device``."""
+    return CSRMatrix(indptr=_tensor(np.asarray(a.indptr), device),
+                     cols=_tensor(np.asarray(a.cols), device),
+                     vals=_tensor(np.asarray(a.vals), device),
+                     shape=_shape(a.shape))
+
+
+def ell_from_jax(a, device) -> ELLMatrix:
+    """A JAX ``ELLMatrix`` as this package's, on ``device``."""
+    return ELLMatrix(cols=_tensor(np.asarray(a.cols), device),
+                     vals=_tensor(np.asarray(a.vals), device),
+                     shape=_shape(a.shape))
+
+
+def bsr_from_jax(a, device) -> BSRMatrix:
+    """A JAX ``BSRMatrix`` as this package's, on ``device``."""
+    return BSRMatrix(block_cols=_tensor(np.asarray(a.block_cols), device),
+                     blocks=_tensor(np.asarray(a.blocks), device),
+                     shape=_shape(a.shape))
+
+
+def stencil_ilu0_from_jax(st, shape_zyx, box_system, device) -> StencilILU0:
+    """A JAX ``StencilILU0`` as this package's, on ``device``.  Its padded
+    form (``padded=True``: ``PallasStencilOperator`` factors) is cropped
+    through :func:`field_from_jax_arrays` into field-tier factors;
+    otherwise the flat-roll factors carry over as they are.
+    ``box_system`` is the assembled system's box (None: no conductor)."""
+    nz, ny, nx = _shape(shape_zyx)
+    if st.padded:
+        op = lambda o: field_from_jax_arrays(
+            np.asarray(o.ka_p), np.asarray(o.gu_p), np.asarray(o.ku_p),
+            np.asarray(o.da_p), (nz, ny, nx), o.box, box_system, device)
+        crop = lambda a: _tensor(np.asarray(a)[:nz, :ny, :nx], device)
+    else:
+        op = lambda o: StencilOperator(
+            *(_tensor(np.asarray(getattr(o, f)), device)
+              for f in ("ka", "gu", "ku", "da")),
+            box=None if o.box is None else _shape(o.box))
+        crop = lambda a: _tensor(np.asarray(a), device)
+    return StencilILU0(L_op=op(st.L_op), U_op=op(st.U_op), d_A=crop(st.d_A),
+                       d_U=crop(st.d_U), inv_dA=crop(st.inv_dA),
+                       inv_dU=crop(st.inv_dU), padded=bool(st.padded))

@@ -26,10 +26,15 @@ through their plain torch versions:
 
 float64 runs the flat-roll :class:`StencilOperator`, on the CPU only.  The
 solve is BiCGSTABwr, unpreconditioned or right-preconditioned with Jacobi,
-Chebyshev, Chebyshev on Jacobi or the multigrid V-cycle, as in the JAX
-package.  The route choice is not a fallback: both tiers run hand-written
-kernels on the card, a kernel that fails to build or launch raises, and an
-option that is not ported (``precond="ilu0"``) raises.
+Chebyshev, Chebyshev on Jacobi, the multigrid V-cycle or ILU(0), as in the
+JAX package.  ILU(0) (``solvers/ilu0.py``) factors the exported CSR on the
+host once and applies its factors as stencil operators: field-tier
+operators (the ``field_a``/``field_u`` kernels on the card) with a float32
+tier, flat-roll operators in float64.  Its factors live on the full grid,
+so the coded operator keeps a full-shape U under it (``compact_u=False``,
+the whole-plane route).  The route choice is not a fallback: both tiers run
+hand-written kernels on the card, and a kernel that fails to build or
+launch raises.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from ..ops.coded import CodedUnsupported, from_assembled_coded
 from ..ops.field import FieldStencilOperator
 from ..solvers.bicgstab import bicgstab_wr, bicgstab_wr_right
 from ..solvers.chebyshev import bicgstab_wr_cheb
+from ..solvers.ilu0 import ilu0_stencil_factorize
 from ..solvers.multigrid import build_mg
 from .motion import FunctionMotion, MotionState, advance_function, motion_init
 
@@ -129,11 +135,8 @@ class Simulation:
         if coeff_dtype not in (None, torch.bfloat16):
             raise ValueError(f"coeff_dtype must be None or torch.bfloat16, "
                              f"got {coeff_dtype}")
-        if precond == "ilu0":
-            raise NotImplementedError(
-                "precond='ilu0' is not ported yet (ROADMAP.md Queue 1: "
-                "ILU(0) needs the CSR export and a host factorization)")
-        if precond not in (None, "cheb", "jacobi", "cheb_jacobi", "mg"):
+        if precond not in (None, "cheb", "jacobi", "cheb_jacobi", "mg",
+                           "ilu0"):
             raise ValueError(f"unknown preconditioner {precond!r}")
         if warm_start not in ("extrapolate", "previous"):
             raise ValueError(f"unknown warm_start {warm_start!r}")
@@ -169,8 +172,11 @@ class Simulation:
         self.coded_op = None
         if coded_ok and use_coded is not False:
             try:
-                self.coded_op = from_assembled_coded(self.system, model,
-                                                     self.device)
+                # ilu0's factors live on the full grid, so it keeps a
+                # full-shape U (JAX simulate.py:261-265)
+                self.coded_op = from_assembled_coded(
+                    self.system, model, self.device,
+                    compact_u=(precond != "ilu0"))
             except CodedUnsupported:
                 if use_coded:
                     raise
@@ -220,6 +226,15 @@ class Simulation:
                     "cpu", torch.float64).numpy()
             self._mg = build_mg(op.ka, ku0=ku0, dtype=dtype,
                                 device=self.device)
+        if precond == "ilu0":
+            # right-ILU(0) in stencil form: host factorization on the CSR
+            # export, factors in the state dtype (under coeff_dtype too, as
+            # JAX builds them from the float64 host copies), applied as
+            # fixed Jacobi sweeps per triangle (JAX simulate.py:324-339)
+            self._ilu = ilu0_stencil_factorize(
+                self.system, model, dtype=dtype, device=self.device,
+                field=self._tier is not None)
+            self.ilu_sweeps = 2
 
         self.steps = _schedule(model.tran)
         nx, ny, nz = model.shape_xyz
@@ -361,6 +376,12 @@ class Simulation:
         elif self.precond == "mg":
             res = bicgstab_wr_right(apply_fn, self._mg.apply, b, x0, tol,
                                     itmax)
+            sol = res.x
+        elif self.precond == "ilu0":
+            # the factors act on the full grid, which is the solver space
+            # here (compact_u=False on the coded route)
+            minv = lambda v: self._ilu.apply(v, sweeps=self.ilu_sweeps)
+            res = bicgstab_wr_right(apply_fn, minv, b, x0, tol, itmax)
             sol = res.x
         else:
             # only the coded operator fuses the dots (in float32); the

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..assembly.stencil import State
+from ..utils.device import resolve_device
 
 __all__ = ["build_mg", "MGLevel", "MGPreconditioner", "MgUnsupported",
            "MG_CELL_LIMIT", "galerkin_coarsen", "stencil7_apply"]
@@ -195,7 +196,8 @@ def build_mg(ka, ku0=None, min_dim: int = 4, max_levels: int = 10,
     """Build the V-cycle hierarchy from fine A coefficients ``ka``
     (7, nz, ny, nx; a tensor or a numpy array) and the optional U-row
     diagonal field ``ku0`` (nz, ny, nx; zeros off-conductor).  The levels
-    are ``dtype`` tensors on ``device`` (default: ``ka``'s).  Raises
+    are ``dtype`` tensors on ``device`` (default: ``ka``'s when it is a
+    tensor, else the CUDA device, which must exist).  Raises
     :class:`MgUnsupported` above MG_CELL_LIMIT cells."""
     n_cells = int(np.prod(tuple(ka.shape)[1:]))
     if n_cells > MG_CELL_LIMIT:
@@ -208,6 +210,7 @@ def build_mg(ka, ku0=None, min_dim: int = 4, max_levels: int = 10,
     if isinstance(ka, torch.Tensor):
         dtype = dtype or ka.dtype
         device = device if device is not None else ka.device
+    device = resolve_device(device)
     dtype = dtype or torch.float64
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 

@@ -9,6 +9,7 @@ import contextlib
 import numpy as np
 import torch
 
+from eddy_currents_3d_tpu.ops import pallas_sparse as psp
 from eddy_currents_3d_tpu.ops import pallas_stencil as ps
 
 torch.set_num_threads(2)
@@ -19,13 +20,14 @@ CPU = torch.device("cpu")
 @contextlib.contextmanager
 def pallas_interpret():
     """Run the JAX package's Pallas kernels in interpret mode, as its own
-    tests do on the CPU (tests/test_coded.py), restoring the flag after."""
-    prev = ps.INTERPRET
-    ps.INTERPRET = True
+    tests do on the CPU (tests/test_coded.py, tests/test_sparse.py),
+    restoring the flags after."""
+    prev = ps.INTERPRET, psp.INTERPRET
+    ps.INTERPRET = psp.INTERPRET = True
     try:
         yield
     finally:
-        ps.INTERPRET = prev
+        ps.INTERPRET, psp.INTERPRET = prev
 
 
 def host(x) -> np.ndarray:
@@ -77,3 +79,26 @@ def z_through_case(c):
         "f1 func F=a*cos(p2*f*t) a='100/(dx*dz)' p2='2*pi' f=50 t=t",
     ]
     return c.make_vxc_text((nx, ny, nz), 0.004, names, geo.ravel())
+
+
+def two_domain_case(c):
+    """Two touching conducting domains and a coil.  Domain 2 lies below
+    domain 1 in z, but the reference's PHYS_C numbering (domain 1's cells,
+    then domain 2's; tests/test_assembly.py test_two_conducting_domains)
+    numbers it second, so the numbering is not monotone in the flat cell
+    index and the +z ku entries across the interface fall below the
+    diagonal."""
+    nx, ny, nz = 16, 10, 10
+    geo = np.zeros((nz, ny, nx), np.int64)
+    geo[2:5, 3:7, 3:10] = 2
+    geo[5:8, 3:7, 3:10] = 1
+    geo[4, 8, 2:nx - 2] = 3                   # one x-directed coil run
+    names = [
+        "cua D=1 C='mu0*30e6'",
+        "cub D=2 C='mu0*10e6'",
+        "coil D=3 SRCx=F",
+        "param tran stop=0.003 step=1e-3",
+        "p2 solver tol=5e-3 itmax=10000 dir=out",
+        "f1 func F=a*cos(p2*f*t) a='100/(dx*dz)' p2='2*pi' f=50 t=t",
+    ]
+    return c.make_vxc_text((nx, ny, nz), 0.002, names, geo.ravel())

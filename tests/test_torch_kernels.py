@@ -1,14 +1,16 @@
 """The hand-written CUDA kernels against their plain torch versions, on
 the card: the whole-plane coded matvec, the split route's stencil and
-conductor-slab kernels, and the field tier's field_a and field_u (float32
-and bfloat16 coefficients).  Every test here needs a CUDA device and nvcc and
-skips without them.  The file imports no jax, so it runs on a machine
-without it:
+conductor-slab kernels, the field tier's field_a and field_u (float32
+and bfloat16 coefficients), and the block-sparse SpMM (float32 and
+float64).  Every test here needs a CUDA device and nvcc and skips without
+them.  The file imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerances are those of the CPU parity tests (tests/test_torch_coded.py):
 3e-6 of the output scale for the matvec, 2e-5 relative for the fused dots.
+The SpMM sums at most width*C products per output in another order than
+the plain einsum: 3e-6 (float32) and 1e-12 (float64) of max(|B|·|X|).
 """
 
 import dataclasses
@@ -32,6 +34,9 @@ from eddy_currents_3d_tpu_torch.ops.field import (FieldStencilOperator,
                                                   field_a_reference,
                                                   field_u_reference)
 from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+from eddy_currents_3d_tpu_torch.ops.bsr_cuda import (bsr_matvec, bsr_spmm,
+                                                     bsr_spmm_reference)
+from eddy_currents_3d_tpu_torch.ops.sparse import bsr_from_scipy
 from eddy_currents_3d_tpu_torch.testing import cases
 
 pytestmark = pytest.mark.cuda
@@ -282,8 +287,8 @@ def _nocond_text():
 def test_unported_cuda_options_raise(cuda):
     from eddy_currents_3d_tpu_torch import Simulation
     model = cases.load_case(cases.case_static(shape_xyz=(12, 12, 12), steps=2))
-    with pytest.raises(NotImplementedError, match="ilu0"):
-        Simulation(model, torch.float32, device=cuda, precond="ilu0")
+    with pytest.raises(ValueError, match="dtype must be float32 or float64"):
+        Simulation(model, torch.bfloat16, device=cuda)   # bf16 state
     with pytest.raises(ValueError, match="precond='mg'"):
         Simulation(model, torch.float32, device=cuda, precond="mg",
                    use_coded=True)
@@ -446,3 +451,127 @@ def test_no_conductor_model_runs_on_cuda(cuda):
     st, diag = sim.run()
     assert not diag["unconverged_steps"] and torch.isfinite(st.A).all()
     assert field_a.launches > n[0] and field_u.launches == n[1]
+
+
+# ---- ILU(0): its factors run the field kernels ----
+
+@pytest.mark.parametrize("use_coded", [None, False], ids=["coded", "field"])
+def test_simulation_runs_ilu0_through_the_field_kernels(cuda, use_coded):
+    from eddy_currents_3d_tpu_torch import Simulation
+    model = cases.load_case(cases.case_static(shape_xyz=(20, 20, 12), steps=3))
+    plain, _ = Simulation(model, torch.float32, device=cuda).run()
+    sim = Simulation(model, torch.float32, device=cuda, precond="ilu0",
+                     use_coded=use_coded)
+    assert sim._ilu.padded and sim._ilu.L_op.ka.is_cuda
+    if use_coded is None:
+        assert not sim.coded_op.compact_u
+    ks = (field_a, field_u, coded_matvec, coded_stencil, coded_slab)
+    n = [k.launches for k in ks]
+    st, diag = sim.run()
+    d = [k.launches - n0 for k, n0 in zip(ks, n)]
+    its = diag["total_iterations"]
+    assert not diag["unconverged_steps"] and torch.isfinite(st.A).all()
+    # two preconditioner applies per iteration, each 2 + 2 factor sweeps
+    assert d[0] >= 8 * its and d[1] >= 8 * its
+    assert d[3:] == [0, 0]                            # no split kernel
+    assert (d[2] >= 2 * its) == (use_coded is None)
+    tol = model.solver.tolerance
+    scale = plain.A.abs().max().item()
+    assert (st.A - plain.A).abs().max().item() <= 4 * tol * scale
+
+
+# ---- the block-sparse SpMM ----
+
+SPMM_TOL = {torch.float32: 3e-6, torch.float64: 1e-12}
+
+
+def _rand_bsr(block_shape, dtype, dev, n=203, density=0.05, seed=0):
+    """A scipy random matrix on a grid that is not a multiple of the block
+    size, as block-ELL on ``dev``."""
+    from scipy import sparse
+    a = sparse.random(n, n, density=density,
+                      random_state=np.random.RandomState(seed)).tocsr()
+    a.setdiag(1.0)
+    return bsr_from_scipy(a, block_shape=block_shape, dtype=dtype, device=dev)
+
+
+def _spmm_close(b, x, y, ref):
+    bound = torch.einsum("rwij,rwjk->rik", b.blocks.abs(),
+                         x.abs().reshape(-1, b.block_shape[1], x.shape[1])[
+                             b.block_cols]).max().item()
+    err = (y - ref).abs().max().item()
+    assert err <= SPMM_TOL[b.blocks.dtype] * bound, (err, bound)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("k", [1, 4, 128])
+@pytest.mark.parametrize("block_shape", [(8, 8), (4, 8), (8, 16), (3, 12)],
+                         ids=lambda b: f"{b[0]}x{b[1]}")
+def test_bsr_spmm_matches_plain(cuda, block_shape, k, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = _rand_bsr(block_shape, dtype, cuda)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (b.shape[1], k))).to(cuda, dtype)
+    n0 = bsr_spmm.launches
+    y = bsr_spmm(b, x)
+    torch.cuda.synchronize()
+    assert bsr_spmm.launches == n0 + 1 and y.dtype == dtype
+    _spmm_close(b, x, y, bsr_spmm_reference(b, x))
+    assert torch.equal(bsr_spmm(b, x), y)           # repeats bit for bit
+    R, C = block_shape
+    pow2 = C & (C - 1) == 0
+    assert bsr_spmm.route(block_shape, k) == (
+        "warp" if k < 32 and pow2 else "lanes")
+
+
+def test_bsr_matvec_runs_the_kernel_at_k1(cuda):
+    b = _rand_bsr((8, 8), torch.float32, cuda)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        b.shape[1])).to(cuda, torch.float32)
+    n0 = bsr_spmm.launches
+    y = bsr_matvec(b, x)
+    assert bsr_spmm.launches == n0 + 1 and y.shape == (b.shape[0],)
+    _spmm_close(b, x[:, None], y[:, None], b.matvec(x)[:, None])
+
+
+def test_bsr_wrapper_rejects_bad_inputs(cuda):
+    b = _rand_bsr((8, 8), torch.float32, cuda)
+    x = torch.ones((b.shape[1], 4), device=cuda)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        bsr_spmm(dataclasses.replace(b, blocks=b.blocks.half()), x.half())
+    with pytest.raises(ValueError, match="float32"):
+        bsr_spmm(b, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        bsr_spmm(b, x.t().contiguous().t())
+    with pytest.raises(ValueError, match="int32"):
+        bsr_spmm(dataclasses.replace(b, block_cols=b.block_cols.long()), x)
+    with pytest.raises(ValueError, match="x has shape"):
+        bsr_spmm(b, x[:-1])
+
+
+def test_matrix_form_solve_through_the_kernel(cuda):
+    """The exported operator as (8, 8) blocks: bsr_matvec gives the coded
+    operator's apply, and BiCGSTABwr on it converges."""
+    from eddy_currents_3d_tpu_torch.assembly.assemble import to_csr
+    from eddy_currents_3d_tpu_torch.solvers.bicgstab import bicgstab_wr
+    op, x, _ = _setup("static", cuda)
+    model = cases.load_case(CASES["static"]())
+    sysm = assemble_operator(model, torch.float64, "cpu")
+    csr = to_csr(sysm, model)
+    b = bsr_from_scipy(csr, block_shape=(8, 8), dtype=torch.float32,
+                       device=cuda)
+    condno = model.cond_number.ravel()
+    order = np.nonzero(condno)[0]
+    u_cells = torch.from_numpy(order[np.argsort(condno[order])]).to(cuda)
+    flat = lambda A, U: torch.cat([A.reshape(-1), U.reshape(-1)[u_cells]])
+    pad = b.shape[1] - csr.shape[0]
+    v = torch.nn.functional.pad(flat(x.A, x.U), (0, pad))
+    y = bsr_matvec(b, v)[:csr.shape[0]]
+    yA, yU = coded_matvec(op, x.A, x.U)
+    _spmm_close(b, v[:, None], y[:, None], flat(yA, yU)[:, None])
+    rhs = torch.nn.functional.pad(y, (0, pad))
+    n0 = bsr_spmm.launches
+    res = bicgstab_wr(lambda u: bsr_matvec(b, u), rhs, torch.zeros_like(rhs),
+                      5e-3, 10000)
+    assert res.converged and bsr_spmm.launches - n0 >= 2 * res.iterations

@@ -125,7 +125,12 @@ def test_mg_unsupported_above_cell_limit():
     # at the limit it builds
     small = np.zeros((7, 4, 4, 4))
     small[0] = 1.0
-    assert len(ect.build_mg(small, dtype=torch.float64).levels) >= 1
+    assert len(ect.build_mg(small, dtype=torch.float64,
+                            device="cpu").levels) >= 1
+    # a numpy ka with no device names the card, which must exist
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ect.build_mg(small, dtype=torch.float64)
 
 
 def _close(got, ref, tol):

@@ -9,7 +9,8 @@
   (forced as in tests/test_torch_split.py): every step converges and A
   agrees within 4·tol·scale (tests/test_coded.py:230-233).
 * The Chebyshev preconditioner and its warm-start exit match JAX's;
-  ``ilu0`` still raises, and ``mg`` raises with ``use_coded=True``.
+  ``mg`` raises with ``use_coded=True``, and ``ilu0`` with ``use_coded=True``
+  and bfloat16 coefficients (ILU(0) itself: tests/test_torch_ilu0.py).
 """
 
 import numpy as np
@@ -141,19 +142,21 @@ def test_cheb_warm_start_already_converged():
     assert float(res.relres) == pytest.approx(float(rj.relres), abs=1e-15)
 
 
-# precond -> (Simulation keywords, the error): ilu0 is not ported; mg is,
-# but never on the coded operator, so an explicit use_coded=True raises
+# precond -> (Simulation keywords, the error, its message): mg never runs
+# on the coded operator, so an explicit use_coded=True raises; ilu0 runs on
+# it, but not with bfloat16 coefficients, which only the field tier takes
 REFUSED = {
-    "mg": ({"use_coded": True}, ValueError),
-    "ilu0": ({}, NotImplementedError),
+    "mg": ({"use_coded": True}, ValueError, "precond='mg'"),
+    "ilu0": ({"use_coded": True, "coeff_dtype": torch.bfloat16}, ValueError,
+             "coeff_dtype"),
 }
 
 
 @pytest.mark.parametrize("precond", ["mg", "ilu0"])
 def test_unported_precond_raises(precond):
     model = tcases.load_case(tcases.case_static(shape_xyz=(12, 12, 12), steps=2))
-    kw, err = REFUSED[precond]
-    with pytest.raises(err, match=f"precond='{precond}'"):
+    kw, err, match = REFUSED[precond]
+    with pytest.raises(err, match=match):
         ect.Simulation(model, torch.float32, device=CPU, precond=precond, **kw)
     with pytest.raises(ValueError, match="unknown preconditioner"):
         ect.Simulation(model, torch.float32, device=CPU, precond="ssor")

@@ -166,8 +166,8 @@ def test_run_writes_outputs(tmp_path):
 
 def test_unported_options_raise():
     model = tcases.load_case(tcases.case_static(shape_xyz=(12, 12, 12), steps=2))
-    with pytest.raises(NotImplementedError, match="precond='ilu0'"):
-        ect.Simulation(model, torch.float32, device=CPU, precond="ilu0")
+    with pytest.raises(ValueError, match="dtype must be float32 or float64"):
+        ect.Simulation(model, torch.bfloat16, device=CPU)   # bf16 state
     with pytest.raises(ValueError, match="warm_start"):
         ect.Simulation(model, torch.float32, device=CPU, warm_start="zero")
     with pytest.raises(TypeError):
@@ -176,7 +176,11 @@ def test_unported_options_raise():
 
 def test_import_loads_no_jax():
     code = ("import sys, eddy_currents_3d_tpu_torch, "
-            "eddy_currents_3d_tpu_torch.convert; "
+            "eddy_currents_3d_tpu_torch.convert, "
+            "eddy_currents_3d_tpu_torch.ops.sparse, "
+            "eddy_currents_3d_tpu_torch.ops.bsr_cuda, "
+            "eddy_currents_3d_tpu_torch.ops.native, "
+            "eddy_currents_3d_tpu_torch.solvers.ilu0; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'eddy_currents_3d_tpu' not in sys.modules")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
