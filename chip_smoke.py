@@ -6,9 +6,10 @@
 Phases, each printed before the last line:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the kernels' three sources (csrc/coded_matvec.cu,
-   csrc/coded_split.cu, csrc/field_stencil.cu) with nvcc, all at once, and
-   load them;
+2. build the kernels' five sources (csrc/coded_matvec.cu,
+   csrc/coded_split.cu, csrc/field_stencil.cu and csrc/bsr_spmm.cu with
+   nvcc, the host ILU(0) engine csrc/ilu0_host.cpp with g++), all at once,
+   and load them;
 3. the whole-plane kernel (coded_matvec) against its plain torch version on
    the card, for apply, apply_dots and apply_div, on case_static
    102x102x24, a small case_convection and case_static 256x256x64, with the
@@ -17,7 +18,10 @@ Phases, each printed before the last line:
 4. the split route's kernels (coded_stencil, coded_slab) against their plain
    versions the same way, for apply, apply_dots and apply_div, on
    case_static 256x256x64 (its compact U: the conductor's 5 planes) and the
-   small case_convection (the slab kernel's convection branch);
+   small case_convection (the slab kernel's convection branch); the slab
+   kernel given the stencil kernel's dots returns their sum bit for bit;
+   one split apply_dots is 2 device launches (torch.profiler, 20 calls;
+   a trace with no device event fails);
 5. the main path: Simulation(float32, device="cuda").run(output_dir=...)
    over 20 steps of case_static 102x102x24; every step converges, A and
    the carry are finite, the VTK files exist, and the whole-plane kernel's
@@ -32,7 +36,8 @@ Phases, each printed before the last line:
    the whole-plane kernel with a full-shape U, in turns (split, whole,
    whole, split); every step converges, and the two routes' A agree within
    4 tol scale after one step; ms/step, ms/iteration and iterations of
-   each;
+   each; then 5 split steps profiled: device us per iteration and busy
+   share;
 8. team7 (102x102x24) preconditioned, 20 steps each with cheb_jacobi
    (order 8) and with jacobi: every step converges; then 3 jacobi steps on
    the card, each taken from the float64 CPU jacobi state, within 4 tol
@@ -85,7 +90,11 @@ Phases, each printed before the last line:
    state, within 4 tol scale;
 16. device µs per call (torch.profiler) of the five earlier kernels at
    the shapes of their records, and each kernel's summary: events, device
-   time, bound, plain version and main-path launches.
+   time, bound, plain version and main-path launches; for the split pair
+   at 256x256x64 also the plan (tile, ring depth, runs of planes, CTAs),
+   each kernel's ptxas registers, spills and static shared memory from
+   the build log, its dynamic shared memory and resident CTAs per SM, and
+   phase 4's device launches per split apply_dots.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is the card's name and power limit; the one before it the kernels' JSON
@@ -188,6 +197,16 @@ def device_ms(fn, name, n=20):
     return total / count / 1e3 if total > 0 and count else None
 
 
+def device_launches(fn, calls=20):
+    """Device kernels per call of ``fn`` over ``calls`` calls after a
+    warm-up, from :func:`trace`; None when the trace holds no device
+    event."""
+    fn()
+    _, kernels, _ = trace(lambda: [fn() for _ in range(calls)])
+    n = sum(c for _, c in kernels.values())
+    return n / calls if n else None
+
+
 def _busy(kernels, wall, iters):
     """Device µs per iteration and busy share of a traced run."""
     dev_s = sum(t for t, _ in kernels.values()) / 1e6
@@ -269,6 +288,7 @@ def phase_build():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 say("    ptxas:", line.strip())
     say(f"[2] the {len(SOURCES)} builds took {wall:.2f} s of wall time")
+    return {name: log for name, (_, log, _) in zip(SOURCES, built)}
 
 
 def _case_ops(text, dev):
@@ -397,11 +417,11 @@ def phase_split_vs_plain(grids, dev):
         rA = plain_st()[:, own]
         scale = rA.abs().max().item()
         yA = coded_stencil(op, x.A)[:, own]
-        dA, pw, py = coded_stencil(op, x.A, w.A)
+        dA, st_dots = coded_stencil(op, x.A, w.A)
         dA = dA[:, own]
         st_err = {"apply": _maxabs(yA, rA) / scale,
                   "apply_dots": _maxabs(dA, rA) / scale}
-        st_dot = _dot_err(pw, py, *_f64_dots([(dA, w.A[:, own])]))
+        st_dot = _dot_err(*st_dots, *_f64_dots([(dA, w.A[:, own])]))
         st_abs = max(_maxabs(yA, rA), _maxabs(dA, rA))
 
         # ---- slab kernel: the slab's planes, compact U ----
@@ -412,8 +432,13 @@ def phase_split_vs_plain(grids, dev):
         yU = coded_slab(op, x.A, Uc, yS)
         yS = yS[:, zb0:zb1]
         dS = torch.empty_like(x.A)
-        dU, pw, py = coded_slab(op, x.A, Uc, dS, wc)
+        dU, sl_dots = coded_slab(op, x.A, Uc, dS, wc)
         dS = dS[:, zb0:zb1]
+        # the pair's dots: the slab kernel adds the stencil kernel's first
+        _, pair = coded_slab(op, x.A, Uc, torch.empty_like(x.A), wc, st_dots)
+        if not torch.equal(pair, st_dots + sl_dots):
+            raise AssertionError(f"slab dots with the stencil's {pair} != "
+                                 f"{st_dots} + {sl_dots} on {name}")
         rD = plain_sl(U=None)
         yD = coded_slab(op, x.A)
         dscale = max(rD.abs().max().item(), 1.0)
@@ -421,8 +446,8 @@ def phase_split_vs_plain(grids, dev):
                   "apply_dots": max(_maxabs(dS, sA) / sscale,
                                     _maxabs(dU, sU) / uscale),
                   "apply_div": _maxabs(yD, rD) / dscale}
-        sl_dot = _dot_err(pw, py, *_f64_dots([(dS, w.A[:, zb0:zb1]),
-                                              (dU, wc.U)]))
+        sl_dot = _dot_err(*sl_dots, *_f64_dots([(dS, w.A[:, zb0:zb1]),
+                                                (dU, wc.U)]))
         sl_abs = max(_maxabs(yS, sA), _maxabs(yU, sU), _maxabs(dS, sA),
                      _maxabs(dU, sU), _maxabs(yD, rD))
         torch.cuda.synchronize()
@@ -440,6 +465,18 @@ def phase_split_vs_plain(grids, dev):
                                cuda_ms(lambda: plain_sl(ww=wc), n_p)),
                 "apply_div": (cuda_ms(lambda: coded_slab(op, x.A), n_k),
                               cuda_ms(lambda: plain_sl(U=None), n_p))}
+        # the device launches of one apply_dots where the operator takes
+        # the split route
+        per_call = None
+        if op.split:
+            xs, ws = op.pad_state(x), op.pad_state(w)
+            per_call = device_launches(lambda: op.apply_dots(xs, ws))
+            say(f"[4] split apply_dots {name}: {per_call} device launches "
+                f"per call")
+            if per_call != 2:
+                raise AssertionError(f"split apply_dots on {name}: {per_call} "
+                                     f"device launches per call (None: no "
+                                     f"device event in the trace), not 2")
         for kname, errs, t, derr in (("coded_stencil", st_err, st_t, st_dot),
                                      ("coded_slab", sl_err, sl_t, sl_dot)):
             say(f"[4] {kname} {name} ({nx}x{ny}x{nz}, slab z {zb0}..{zb1 - 1}, "
@@ -452,7 +489,8 @@ def phase_split_vs_plain(grids, dev):
                 raise AssertionError(f"{kname} != plain on {name}: {bad}, "
                                      f"dots {derr:.3e}")
         out[name] = {"coded_stencil": {"times": st_t, "max_abs_err": st_abs},
-                     "coded_slab": {"times": sl_t, "max_abs_err": sl_abs}}
+                     "coded_slab": {"times": sl_t, "max_abs_err": sl_abs},
+                     "launches_per_apply_dots": per_call}
     return out
 
 
@@ -606,6 +644,10 @@ def phase_scale(rec, dev):
         tol * last["whole"].A.abs().max().item())
     say(f"[7] split vs whole max |dA| / (tol scale): {gap1:.3f} after step 1 "
         f"(limit 4), {gap5:.3f} after step 5; compact U planes {zb0}..{zb1 - 1}")
+    (_, d5), kernels, wall5 = trace(lambda: sims["split"].run(num_steps=5))
+    say(f"[7] 256x256x64 split x 5 steps profiled: "
+        f"{wall5 / d5['total_iterations'] * 1e3:.3f} ms/iteration under the "
+        f"profiler, {_busy(kernels, wall5, d5['total_iterations'])}")
     if not gap1 <= 4.0:
         raise AssertionError(f"split and whole-plane routes differ by "
                              f"{gap1:.3f} tol scale after step 1")
@@ -1139,9 +1181,9 @@ def phase_device_times(recs, dev):
     wc = State(ws.A, ws.U[zb0:zb1])
     buf = torch.empty_like(xs.A)
     out["coded_stencil"] = device_ms(lambda: coded_stencil(sop, xs.A, ws.A),
-                                     "stencil_kernel")
+                                     "stencil_march")
     out["coded_slab"] = device_ms(
-        lambda: coded_slab(sop, xs.A, Uc, buf, wc), "slab_kernel")
+        lambda: coded_slab(sop, xs.A, Uc, buf, wc), "slab_march")
     fop = _field_op(t7["system"], torch.float32)
     yb = field_a(fop.ka, x.A)
     out["field_a"] = device_ms(lambda: field_a(fop.ka, x.A), "field_a")
@@ -1150,6 +1192,55 @@ def phase_device_times(recs, dev):
         f"{k} {'not measured' if v is None else f'{v * 1e3:.2f}'}"
         for k, v in out.items()))
     return out
+
+
+def _ptxas(log, pattern):
+    """The build log's ptxas lines (spills; registers and static shared
+    memory) of the entry function whose mangled name holds ``pattern``."""
+    lines = log.splitlines()
+    for j, line in enumerate(lines):
+        if "Compiling entry function" in line and pattern in line:
+            out = []
+            for nxt in lines[j + 1:j + 5]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "spill" in nxt or "Used" in nxt:
+                    out.append(nxt.strip().replace("ptxas info    : ", ""))
+            return "; ".join(out)
+    return "not in the build log"
+
+
+def phase_split_details(rec, logs, per_call, dev):
+    """The split pair at 256x256x64: its plan, each kernel's resources, and
+    the device launches per split apply_dots that phase 4 measured."""
+    from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (
+        CHUNK, SLAB_TILE, STENCIL_TILE, coded_slab, coded_stencil, plan_of)
+
+    op = rec["op"]
+    nz, ny, nx = op.shape_zyx
+    zb0, zb1 = op.cond_z
+    plan = plan_of(op)
+    (svx, sty, sst), (lvx, lty, lst) = STENCIL_TILE, SLAB_TILE
+    say(f"[16] split plan at {nx}x{ny}x{nz}, slab z {zb0}..{zb1 - 1}: "
+        f"coded_stencil tile {32 * svx}x{sty} cells ({svx} per thread, "
+        f"{32 * sty} threads), ring of {sst} planes, runs of <= {CHUNK} "
+        f"planes {list(plan.chunks)}: {plan.stencil_tiles} tiles x "
+        f"{len(plan.chunks)} runs = {plan.stencil_ctas} CTAs; coded_slab "
+        f"tile {32 * lvx}x{lty} cells, ring of {lst} planes, runs "
+        f"{list(plan.slab_chunks)}: {plan.slab_ctas} CTAs")
+    log = logs.get("coded_split", "")
+    for name, w, pattern in (("coded_stencil", coded_stencil,
+                              "stencil_marchILb1EE"),
+                             ("coded_slab", coded_slab,
+                              "slab_marchILi1ELb0EE")):
+        info = w.info(1, False, dev)
+        say(f"[16] {name} (apply_dots): ptxas {_ptxas(log, pattern)}; "
+            f"runtime {info['registers']} registers, "
+            f"{info['static_smem']} B static + {info['dynamic_smem']} B "
+            f"dynamic shared memory per CTA, {info['ctas_per_sm']} CTAs "
+            f"per SM, {info['local_bytes']} B local per thread")
+    say(f"[16] split apply_dots at {nx}x{ny}x{nz}: {per_call:g} device "
+        f"launches per call (phase 4)")
 
 
 def main() -> int:
@@ -1165,7 +1256,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     card = phase_device()
-    phase_build()
+    logs = phase_build()
     grids = [
         ("team7", case_static(shape_xyz=(102, 102, 24), steps=3)),
         ("convection", case_convection(shape_xyz=(48, 24, 16), steps=3)),
@@ -1193,6 +1284,8 @@ def main() -> int:
     del B
     phase_ilu0(model, dev)
     dev_times = phase_device_times(recs, dev)
+    phase_split_details(recs["scale256"], logs,
+                        split_recs["scale256"]["launches_per_apply_dots"], dev)
     dev_times["bsr_spmm"] = bsr_recs[1]["device_ms"]
 
     # bytes each function must move (inputs read once, outputs written

@@ -12,7 +12,8 @@
 //     interior13 half terms and the (x-, y+, z+) sign quirk of
 //     EC3D.f90:803-806, exactly as the JAX ladder writes it.
 // The per-cell arithmetic lives in coded_cell.cuh, shared with the split
-// kernels of coded_split.cu.
+// kernels of coded_split.cu: this kernel reads each cell's A (and, on
+// conducting cells, U) neighbours for it with guarded global reads.
 // Three modes: APPLY; DOTS, which also writes per-block float32 partials
 // of y.w and y.y; DIV, where U is 0 and only yU is written (apply_div).
 //
@@ -60,11 +61,19 @@ coded_matvec_kernel(const float* __restrict__ A, const float* __restrict__ U,
     const size_t i = (static_cast<size_t>(z) * g.ny + y) * g.nx + x;
     const int cd = code[i];
     float ya[3] = {0.f, 0.f, 0.f};
-    if (MODE != kDiv) a_stencil(A, x, y, z, i, n, g, k, ya);
+    const GlobalA a{A, i, n, x, y, z, g};
+    if (MODE != kDiv) a_rows(a_face(x, y, z, g, k), a, ya);
     float yu = 0.f;
     if (cd != 0) {
-      yu = conductor<MODE == kDiv, CONV>(cd, A, Planes{U, 0, g.nz}, cf, conv,
-                                         x, y, z, i, n, g, k,
+      const GlobalU u{Planes{U, 0, g.nz}, x, y, z, g};
+      float c0 = 0.f;
+      float cv[3] = {0.f, 0.f, 0.f};
+      if (MODE != kDiv) c0 = __ldg(cf + i);
+      if (CONV) {
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) cv[ax] = __ldg(conv + ax * n + i);
+      }
+      yu = conductor<MODE == kDiv, CONV>(cd, a, u, c0, cv, k,
                                          inertia_on_faces, ya);
     }
 

@@ -421,7 +421,7 @@ def coded_stencil_reference(A, consts, cond_z, wA=None):
 
 
 def coded_slab_reference(A, U_c, code, cf, conv, consts, inertia_on_faces,
-                         cond_z, w: Optional[State] = None):
+                         cond_z, w: Optional[State] = None, prior=None):
     """Plain torch version of the split route's slab kernel
     (``coded_slab``): the whole coded matvec on the slab planes
     ``cond_z = (zb0, zb1)`` over the z-compact ``U_c`` (those planes only;
@@ -431,7 +431,8 @@ def coded_slab_reference(A, U_c, code, cf, conv, consts, inertia_on_faces,
     Returns ``(yA_slab, yU_c)`` with ``yA_slab`` the slab's planes of yA,
     ``(yA_slab, yU_c, dot(y, w), dot(y, y))`` over the slab when ``w`` is
     given (``w.A`` full-grid, ``w.U`` compact), or ``yU_c`` alone when
-    ``U_c`` is None (U = 0: the ``apply_div`` contraction)."""
+    ``U_c`` is None (U = 0: the ``apply_div`` contraction).  ``prior``, 2
+    floats (the stencil's dots), is added to the dots: prior + slab."""
     zb0, zb1 = cond_z
     yA, yU = _coded_planes(A, U_c, code, cf, conv, consts, inertia_on_faces,
                            zb0, zb1)
@@ -441,6 +442,8 @@ def coded_slab_reference(A, U_c, code, cf, conv, consts, inertia_on_faces,
         return yA, yU
     pw = torch.sum(yA * w.A[:, zb0:zb1]) + torch.sum(yU * w.U)
     py = torch.sum(yA * yA) + torch.sum(yU * yU)
+    if prior is not None:
+        pw, py = prior[0] + pw, prior[1] + py
     return yA, yU, pw, py
 
 
@@ -515,12 +518,15 @@ class CodedStencilOperator:
 
     def apply_dots(self, x: State, w: State):
         """(y, dot(y, w), dot(y, y)) with both reductions fused into the
-        matvec.  The partial sums and their total are float32."""
+        matvec.  The partial sums and their total are float32.  On the
+        split route the slab kernel adds the stencil kernel's dots to its
+        own (stencil + slab), so the pair is two launches and the dots are
+        views of one tensor."""
         if self.split:
             from .coded_split_cuda import coded_slab, coded_stencil
-            yA, pw_a, py_a = coded_stencil(self, x.A, w.A)
-            yU, pw_b, py_b = coded_slab(self, x.A, x.U, yA, w)
-            return State(yA, yU), pw_a + pw_b, py_a + py_b
+            yA, dots = coded_stencil(self, x.A, w.A)
+            yU, dots = coded_slab(self, x.A, x.U, yA, w, dots)
+            return State(yA, yU), dots[0], dots[1]
         from .coded_cuda import coded_matvec
         yA, yU, pw, py = coded_matvec(self, x.A, x.U, w)
         return State(yA, yU), pw, py

@@ -61,12 +61,37 @@ def _z_through():
     return cases.make_vxc_text((nx, ny, nz), 0.004, names, geo.ravel())
 
 
+def _one_plane_runs():
+    """The conductor on planes 1..6 of 8, nx = 33: the stencil kernel owns
+    two runs of one plane, each next to the slab, and nx is a multiple
+    neither of 4 nor of a tile."""
+    nx, ny, nz = 33, 14, 8
+    geo = np.zeros((nz, ny, nx), np.int64)
+    geo[1:7, 3:ny - 3, 6:nx - 3] = 1
+    geo[2:6, 3:ny - 3, 2] = 2
+    names = ["plast D=1 C='mu0*35e6'", "coil D=1 SRCy=F",
+             "param tran stop=0.002 step=1e-3",
+             "p2 solver tol=5e-3 itmax=10000 dir=out",
+             "f1 func F=a*cos(p2*f*t) a='100/(dx*dz)' p2='2*pi' f=50 t=t"]
+    return cases.make_vxc_text((nx, ny, nz), 0.004, names, geo.ravel())
+
+
 CASES = {
     "static": lambda: cases.case_static(shape_xyz=(40, 36, 20), steps=2),
     "convection": lambda: cases.case_convection(shape_xyz=(24, 12, 10), steps=2),
     "inertia_on_faces": lambda: cases.case_static(shape_xyz=(33, 17, 12), steps=2),
     "z_through": _z_through,
 }
+# the split pair's cases: CASES, nx = 50, runs of one plane, and 21 owned
+# planes above the slab, which the stencil kernel's runs of <= 8 planes cut
+# at 14 and 21, so run boundaries fall next to the slab and inside the
+# owned range (tests/test_torch_split.py checks the plans)
+SPLIT_CASES = dict(
+    CASES,
+    nx50=lambda: cases.case_static(shape_xyz=(50, 20, 16), steps=2),
+    one_plane_runs=_one_plane_runs,
+    short_runs=lambda: cases.case_static(shape_xyz=(40, 24, 28), steps=2),
+)
 
 
 @pytest.fixture
@@ -77,7 +102,7 @@ def cuda():
 
 
 def _setup(name, dev, seed=0):
-    model = cases.load_case(CASES[name]())
+    model = cases.load_case(SPLIT_CASES[name]())
     iof = name == "inertia_on_faces"
     sysm = assemble_operator(model, torch.float32, dev, inertia_on_faces=iof)
     op = from_assembled_coded(sysm, model, dev, inertia_on_faces=iof)
@@ -164,6 +189,13 @@ def test_simulation_runs_through_the_kernel(cuda):
 
 # ---- the split route: stencil kernel + conductor-slab kernel ----
 
+@pytest.fixture
+def split_case(request, cuda):
+    """(name, op, x, w) of a SPLIT_CASES case."""
+    name = request.param
+    return (name,) + _setup(name, cuda)
+
+
 def _split_ref(op, x, w=None):
     """The split pair's plain versions: (yA, compact yU[, dots])."""
     zb0, zb1 = op.cond_z
@@ -176,9 +208,9 @@ def _split_ref(op, x, w=None):
     return (rA,) + tuple(out[1:])
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_split_apply_matches_plain(cuda, name):
-    op, x, _ = _setup(name, cuda)
+@pytest.mark.parametrize("split_case", sorted(SPLIT_CASES), indirect=True)
+def test_split_apply_matches_plain(cuda, split_case):
+    name, op, x, _ = split_case
     zb0, zb1 = op.cond_z
     n_st, n_sl, n_mv = coded_stencil.launches, coded_slab.launches, coded_matvec.launches
     yA = coded_stencil(op, x.A)
@@ -192,19 +224,19 @@ def test_split_apply_matches_plain(cuda, name):
     scale = rA.abs().max().item()
     _close(yA, rA, scale)
     _close(yU, rU, max(rU.abs().max().item(), scale))
-    # the pair computes the whole-plane kernel's matvec
+    # the pair computes the whole-plane kernel's matvec, bit for bit: one
+    # copy of each cell's arithmetic (coded_cell.cuh)
     mA, mU = coded_matvec(op, x.A, x.U)
-    _close(yA, mA, scale)
-    _close(yU, mU[zb0:zb1], max(rU.abs().max().item(), scale))
+    assert torch.equal(yA, mA) and torch.equal(yU, mU[zb0:zb1])
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_split_apply_dots_matches_plain(cuda, name):
-    op, x, w = _setup(name, cuda)
+@pytest.mark.parametrize("split_case", sorted(SPLIT_CASES), indirect=True)
+def test_split_apply_dots_matches_plain(cuda, split_case):
+    name, op, x, w = split_case
     zb0, zb1 = op.cond_z
     Uc, wc = x.U[zb0:zb1], State(w.A, w.U[zb0:zb1])
-    yA, pw_a, py_a = coded_stencil(op, x.A, w.A)
-    yU, pw_b, py_b = coded_slab(op, x.A, Uc, yA, wc)
+    yA, dots_a = coded_stencil(op, x.A, w.A)
+    yU, dots_b = coded_slab(op, x.A, Uc, yA, wc)
     zA = coded_stencil(op, x.A)
     zU = coded_slab(op, x.A, Uc, zA)
     assert torch.equal(yA, zA) and torch.equal(yU, zU)
@@ -212,32 +244,75 @@ def test_split_apply_dots_matches_plain(cuda, name):
     _close(yA, rA, rA.abs().max().item())
     own = torch.cat([torch.arange(0, zb0), torch.arange(zb1, op.shape_zyx[0])])
     own = own.to(cuda)
-    for (pw, py), parts in (
-            ((pw_a, py_a), [(yA[:, own], w.A[:, own])]),
-            ((pw_b, py_b), [(yA[:, zb0:zb1], w.A[:, zb0:zb1]), (yU, wc.U)])):
+    for dots, parts in (
+            (dots_a, [(yA[:, own], w.A[:, own])]),
+            (dots_b, [(yA[:, zb0:zb1], w.A[:, zb0:zb1]), (yU, wc.U)])):
         ref_w = sum(float((a.double() * b.double()).sum()) for a, b in parts)
         ref_y = sum(float((a.double() ** 2).sum()) for a, _ in parts)
-        assert abs(float(pw) - ref_w) < DOT_RTOL * max(abs(ref_w), 1.0)
-        assert abs(float(py) - ref_y) < DOT_RTOL * max(abs(ref_y), 1.0)
-    # no atomics: the partials repeat bit for bit
-    _, pw2, py2 = coded_stencil(op, x.A, w.A)
-    _, pw3, py3 = coded_slab(op, x.A, Uc, torch.empty_like(x.A), wc)
-    assert (float(pw2), float(py2)) == (float(pw_a), float(py_a))
-    assert (float(pw3), float(py3)) == (float(pw_b), float(py_b))
+        assert abs(float(dots[0]) - ref_w) < DOT_RTOL * max(abs(ref_w), 1.0)
+        assert abs(float(dots[1]) - ref_y) < DOT_RTOL * max(abs(ref_y), 1.0)
+    # the slab kernel adds prior dots first: stencil + slab
+    _, tot = coded_slab(op, x.A, Uc, torch.empty_like(x.A), wc, dots_a)
+    assert torch.equal(tot, dots_a + dots_b)
+    # no atomics in the sums: the dots repeat bit for bit
+    _, dots2 = coded_stencil(op, x.A, w.A)
+    _, dots3 = coded_slab(op, x.A, Uc, torch.empty_like(x.A), wc)
+    assert torch.equal(dots2, dots_a) and torch.equal(dots3, dots_b)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_split_apply_div_matches_plain(cuda, name):
-    op, x, _ = _setup(name, cuda)
+@pytest.mark.parametrize("split_case", sorted(SPLIT_CASES), indirect=True)
+def test_split_apply_div_matches_plain(cuda, split_case):
+    name, op, x, _ = split_case
     zb0, zb1 = op.cond_z
     d = coded_slab(op, x.A)
     r = coded_slab_reference(x.A, None, op.code, op.cf, op.conv, op.consts,
                              op.inertia_on_faces, op.cond_z)
     _close(d, r, max(r.abs().max().item(), 1.0))
-    _close(d, coded_matvec(op, x.A)[zb0:zb1], max(r.abs().max().item(), 1.0))
+    assert torch.equal(d, coded_matvec(op, x.A)[zb0:zb1])
 
 
-def test_split_wrappers_reject_bad_inputs(cuda):
+def _split_op(name, dev, seed, monkeypatch):
+    monkeypatch.setattr(coded, "_WHOLE_PLANE_BUDGET", 0)
+    op, x, w = _setup(name, dev, seed)
+    assert op.split
+    return op, op.pad_state(x), op.pad_state(w)
+
+
+def test_split_apply_dots_is_two_launches(cuda, monkeypatch):
+    """apply_dots on the split route: the two kernels and no other device
+    work (the dots are finished in the kernels), counted by the
+    profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    op, x, w = _split_op("static", cuda, 0, monkeypatch)
+    op.apply_dots(x, w)              # makes the wrappers' scratch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y, pw, py = op.apply_dots(x, w)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    assert sum(kernels.values()) == 2, kernels
+    assert any("stencil_march" in k for k in kernels)
+    assert any("slab_march" in k for k in kernels)
+    assert pw.data_ptr() + 4 == py.data_ptr()      # views of one tensor
+
+
+def test_split_dots_repeat_across_operators(cuda, monkeypatch):
+    """100 apply_dots back to back, alternating between two operators:
+    each operator's dots keep their bits (the counter resets)."""
+    pairs = [_split_op(name, cuda, seed, monkeypatch)
+             for name, seed in (("static", 0), ("convection", 1))]
+    first = [torch.stack(op.apply_dots(x, w)[1:]) for op, x, w in pairs]
+    got = [[] for _ in pairs]
+    for _ in range(50):
+        for j, (op, x, w) in enumerate(pairs):
+            got[j].append(torch.stack(op.apply_dots(x, w)[1:]))
+    for ref, runs in zip(first, got):
+        assert all(torch.equal(r, ref) for r in runs)
+
+
+def test_split_wrappers_reject_bad_inputs(cuda, monkeypatch):
     op, x, w = _setup("static", cuda)
     zb0, zb1 = op.cond_z
     Uc = x.U[zb0:zb1]
@@ -253,10 +328,21 @@ def test_split_wrappers_reject_bad_inputs(cuda):
         coded_slab(op, x.A, Uc.cpu(), yA)
     with pytest.raises(ValueError, match="yA"):
         coded_slab(op, x.A, Uc)
+    wc = State(w.A, w.U[zb0:zb1])
+    with pytest.raises(ValueError, match="prior"):
+        coded_slab(op, x.A, Uc, yA, wc, torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError, match="prior"):
+        coded_slab(op, x.A, Uc, yA, None, torch.zeros(2, device=cuda))
     import dataclasses
     bad = dataclasses.replace(op, cond_z=(zb1, zb0))
     with pytest.raises(ValueError, match="conductor planes"):
         coded_stencil(bad, x.A)
+    # a plan made for another tile than the source's is refused
+    from eddy_currents_3d_tpu_torch.ops import coded_split_cuda
+    monkeypatch.setattr(coded_split_cuda, "STENCIL_TILE", (1, 4, 4))
+    other, _, _ = _setup("static", cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        coded_stencil(other, x.A)
 
 
 def test_simulation_runs_through_the_split_kernels(cuda, monkeypatch):

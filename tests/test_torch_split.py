@@ -18,6 +18,10 @@ own ``_WHOLE_PLANE_BUDGET = 0``.
 * Compact U is exact: the operator's U columns off the conductor are zero,
   and U is exactly 0 off the conductor in every solver vector of a
   transient.
+* The kernels' plan covers every plane the stencil kernel owns exactly
+  once and no slab plane, at scale256 and at the card tests' shapes; the
+  wrappers' CPU path adds the stencil's dots to the slab's as the kernels
+  do.
 """
 
 from types import SimpleNamespace
@@ -41,7 +45,12 @@ import eddy_currents_3d_tpu_torch as ect
 from eddy_currents_3d_tpu_torch.assembly.assemble import assemble_operator as t_assemble
 from eddy_currents_3d_tpu_torch.assembly.stencil import State as TState
 from eddy_currents_3d_tpu_torch.ops import coded as tc
+from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (
+    CHUNK, SLAB_CHUNK, SLAB_TILE, STENCIL_TILE, coded_slab, coded_stencil,
+    split_plan)
 from eddy_currents_3d_tpu_torch.testing import cases as tcases
+
+from test_torch_kernels import SPLIT_CASES
 
 ATOL = 3e-6      # x output scale: f32 in-kernel evaluation vs assembled f64
 DOT_RTOL = 2e-5  # f32 accumulation of the fused dots
@@ -253,3 +262,102 @@ def test_u_zero_off_conductor_in_every_solver_vector(precond, split,
     for u in seen:
         assert u.shape == off.shape and not torch.any(u[off])
     assert not torch.any(st.U[~sim.system.cond_mask])
+
+
+# ---- the split kernels' plan and dots, on the CPU ----
+
+H100_SMS = 132
+
+
+def _cond_z(model):
+    zz = np.nonzero(np.asarray(model.cond_mask))[0]
+    return int(zz.min()), int(zz.max()) + 1
+
+
+def _plan_shapes():
+    """(shape, cond_z) of scale256 and of every split card test."""
+    out = [((64, 256, 256), (2, 7))]
+    for name in sorted(SPLIT_CASES):
+        model = tcases.load_case(SPLIT_CASES[name]())
+        out.append((model.shape_zyx, _cond_z(model)))
+    return out
+
+
+_PLAN_IDS = lambda v: str(v).replace(" ", "")
+
+
+@pytest.mark.parametrize("shape_zyx, cond_z", _plan_shapes(), ids=_PLAN_IDS)
+def test_split_plan_covers_owned_planes_once(shape_zyx, cond_z):
+    nz, ny, nx = shape_zyx
+    zb0, zb1 = cond_z
+    plan = split_plan(shape_zyx, cond_z)
+    covered = [z for z0, z1 in plan.chunks for z in range(z0, z1)]
+    assert all(0 < z1 - z0 <= CHUNK for z0, z1 in plan.chunks)
+    assert sorted(covered) == [z for z in range(nz) if not zb0 <= z < zb1]
+    vx, ty, _ = STENCIL_TILE
+    assert plan.stencil_tiles * 32 * vx * ty >= nx * ny
+    assert plan.stencil_ctas == plan.stencil_tiles * len(plan.chunks)
+
+
+@pytest.mark.parametrize("shape_zyx, cond_z", _plan_shapes(), ids=_PLAN_IDS)
+def test_split_plan_covers_slab_planes_once(shape_zyx, cond_z):
+    """The slab kernel's runs cover the slab's compact planes once, in
+    order."""
+    nz, ny, nx = shape_zyx
+    zb0, zb1 = cond_z
+    plan = split_plan(shape_zyx, cond_z)
+    assert [p for p0, p1 in plan.slab_chunks for p in range(p0, p1)] == \
+        list(range(zb1 - zb0))
+    assert all(0 < p1 - p0 <= SLAB_CHUNK for p0, p1 in plan.slab_chunks)
+    vx, ty, _ = SLAB_TILE
+    assert plan.slab_tiles * 32 * vx * ty >= nx * ny
+    assert plan.slab_ctas == plan.slab_tiles * len(plan.slab_chunks)
+
+
+def test_split_plan_fills_an_h100_at_scale256():
+    """At 256x256x64 (59 owned planes) every SM gets at least two stencil
+    CTAs, and the slab kernel's CTAs fit one wave at two per SM."""
+    plan = split_plan((64, 256, 256), (2, 7))
+    assert plan.stencil_ctas >= 2 * H100_SMS
+    assert plan.slab_ctas <= 2 * H100_SMS
+    assert [c for c in plan.chunks if c[1] == 2 or c[0] == 7]
+
+
+def test_split_card_cases_cut_runs_where_intended():
+    """The card tests' short_runs case: runs start next to the slab and end
+    inside the owned planes above it; one_plane_runs: runs of one plane."""
+    plans = {}
+    for name in ("short_runs", "one_plane_runs"):
+        model = tcases.load_case(SPLIT_CASES[name]())
+        plans[name] = (split_plan(model.shape_zyx, _cond_z(model)),
+                       _cond_z(model), model.shape_zyx[0])
+    plan, (_, zb1), nz = plans["short_runs"]
+    above = [c for c in plan.chunks if c[0] >= zb1]
+    assert above[0][0] == zb1 and len(above) >= 3 and above[-1][1] == nz
+    assert all(z1 - z0 == 1 for z0, z1 in plans["one_plane_runs"][0].chunks)
+
+
+@pytest.mark.parametrize("name", ["static", "z_through"])
+def test_slab_wrapper_adds_prior_dots_on_cpu(name, split):
+    """The wrappers' CPU path: the slab's dots with the stencil's passed in
+    equal the plain sums plus those dots; apply_dots returns that sum."""
+    model, _, ct, _ = _build(name)
+    A, U = rand_fields(model.shape_zyx, model.cond_mask, seed=8)
+    wA, wU = rand_fields(model.shape_zyx, model.cond_mask, seed=9)
+    zb0, zb1 = ct.cond_z
+    x = ct.pad_state(TState(_t(A), _t(U)))
+    w = ct.pad_state(TState(_t(wA), _t(wU)))
+    yA, dots_a = coded_stencil(ct, x.A, w.A)
+    _, pw_a, py_a = tc.coded_stencil_reference(x.A, ct.consts, ct.cond_z, w.A)
+    assert torch.equal(dots_a, torch.stack((pw_a, py_a)))
+    _, yU, pw, py = tc.coded_slab_reference(
+        x.A, x.U, ct.code, ct.cf, ct.conv, ct.consts, ct.inertia_on_faces,
+        ct.cond_z, w)
+    yU0, dots_b = coded_slab(ct, x.A, x.U, yA, w)
+    assert torch.equal(yU0, yU) and torch.equal(dots_b, torch.stack((pw, py)))
+    yU1, tot = coded_slab(ct, x.A, x.U, yA.clone(), w, dots_a)
+    assert torch.equal(yU1, yU)
+    assert torch.equal(tot, torch.stack((dots_a[0] + pw, dots_a[1] + py)))
+    y, pw2, py2 = ct.apply_dots(x, w)
+    assert torch.equal(torch.stack((pw2, py2)), tot)
+    assert pw2.data_ptr() + 4 == py2.data_ptr()      # views of one tensor
