@@ -52,7 +52,10 @@ Phases, each printed before the last line:
 10. team7 on the field tier, 20 steps each: use_coded=False
    unpreconditioned, coeff_dtype=bfloat16 with cheb_jacobi order 8, and
    precond="mg": every step converges, A is finite, field_a launches at
-   least 2 x the solver iterations and no coded kernel launches; then 3 mg
+   least 2 x the solver iterations and no coded kernel launches; the
+   use_coded=False run takes the recorded iterations per step
+   (F32_FIELD_ITERS), the witness that the f32 field kernels' sums keep
+   their last bits; then 3 mg
    steps on the card, each from the float64 CPU mg state, within 4 tol
    scale;
 11. scale: 256x256x64 with use_coded=False against the split route, 5
@@ -88,8 +91,24 @@ Phases, each printed before the last line:
    launches; the factor operators' field_a/field_u against their plain
    versions; then 3 ilu0 steps on the card, each from the float64 CPU ilu0
    state, within 4 tol scale;
-16. device µs per call (torch.profiler) of the five earlier kernels at
-   the shapes of their records, and each kernel's summary: events, device
+15b. bfloat16 state: field_a and field_u at bfloat16 state and bfloat16
+   coefficients (their bfloat16-state instantiations) against their plain
+   versions on phase 9's grids, bit for bit (both sum in float32 in one
+   order with no FMA and round once), with the same times and bytes as
+   phase 9; team7 at bfloat16 state, 20 steps unpreconditioned with VTK at
+   dot_dtype=float32 and 20 at dot_dtype=None, then 5 steps each of
+   jacobi, cheb_jacobi (order 8), mg and ilu0 (dot_dtype=float32): every
+   step converges, the state stays bfloat16, A is finite, field_a
+   launches at least 2 x the iterations, every field launch is a
+   bfloat16-state one and no coded kernel launches; the free bfloat16 run
+   after steps 1-3 against the float64 CPU run, within 16 tol scale after
+   step 1; 256x256x64 at bfloat16 state against the float32 field route,
+   3 steps each in turns (bf16, f32, f32, bf16), A finite, convergence
+   reported; one step each of those and of bfloat16 with dot_dtype=None
+   profiled, with the six kernels that take the most device time;
+16. device µs per call (torch.profiler) of the kernels other than
+   bsr_spmm at the shapes of their records (field_a and field_u at float32
+   and at bfloat16 state), and each kernel's summary: events, device
    time, bound, plain version and main-path launches; for the split pair
    at 256x256x64 also the plan (tile, ring depth, runs of planes, CTAs),
    each kernel's ptxas registers, spills and static shared memory from
@@ -101,10 +120,11 @@ is the card's name and power limit; the one before it the kernels' JSON
 record, each kernel's launches counted over the main path it serves
 (phase 5 for coded_matvec, phase 7's first split run for the split pair,
 phase 10's use_coded=False run for field_a and field_u, phase 14's BSR
-solve for bsr_spmm), with its bound (bytes over 3.35 TB/s or operations
-over 67 TFLOP/s FP32, the larger) and the library call's time where one
-PyTorch call computes the same function; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
+solve for bsr_spmm, phase 15b's 20-step dot_dtype=float32 run for the
+bfloat16-state field_a_bf16 and field_u_bf16), with its bound (bytes over
+3.35 TB/s or operations over 67 TFLOP/s FP32, the larger) and the library
+call's time where one PyTorch call computes the same function; the last
+line is {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
 
@@ -128,6 +148,17 @@ SOURCES = ("coded_matvec", "coded_split", "field_stencil", "bsr_spmm",
 HBM_PEAK = 3.35e12  # B/s, H100 SXM data sheet
 FP32_PEAK = 67e12   # FLOP/s outside the tensor cores, H100 SXM data sheet
 SPMM_TOL = {torch.float32: 3e-6, torch.float64: 1e-12}
+# bfloat16-state field kernels against their plain versions, x output scale:
+# both sum in float32 in one order, with no FMA, and round once to bfloat16,
+# so they must agree bit for bit (one FMA would move a cell by one bfloat16
+# ulp, up to 2^-8 of the scale)
+BF16_TOL = 0.0
+# team7's iterations per step on the float32 field route (use_coded=False,
+# 20 steps): the f32 field kernels' outputs to the last bit decide them, so
+# a build whose f32 sums round otherwise shows here (PERF.md, Findings)
+F32_FIELD_ITERS = [50, 43, 30, 28, 20, 20, 20, 7, 8, 14, 21, 28, 29, 10, 14,
+                   15, 28, 9, 10, 15]
+BF16_GAP = 16.0    # bf16 team7 step 1 vs the f64 CPU step 1, tol scale
 KERNELS = {        # name: (source, TPU kernel it replaces)
     "coded_matvec": ("eddy_currents_3d_tpu_torch/csrc/coded_matvec.cu",
                      "eddy_currents_3d_tpu/ops/pallas_coded.py:405"),
@@ -141,6 +172,11 @@ KERNELS = {        # name: (source, TPU kernel it replaces)
                 "eddy_currents_3d_tpu/ops/pallas_stencil.py:206"),
     "bsr_spmm": ("eddy_currents_3d_tpu_torch/csrc/bsr_spmm.cu",
                  "eddy_currents_3d_tpu/ops/pallas_sparse.py:39"),
+    # the bfloat16-state instantiations of field_a and field_u
+    "field_a_bf16": ("eddy_currents_3d_tpu_torch/csrc/field_stencil.cu",
+                     "eddy_currents_3d_tpu/ops/pallas_stencil.py:136"),
+    "field_u_bf16": ("eddy_currents_3d_tpu_torch/csrc/field_stencil.cu",
+                     "eddy_currents_3d_tpu/ops/pallas_stencil.py:206"),
 }
 
 
@@ -235,10 +271,18 @@ def wrappers():
             "bsr_spmm": bsr_spmm}
 
 
+def counters():
+    """{kernel name: its launch count's holder}: the wrappers, and the
+    field wrappers' counts of their bfloat16-state launches."""
+    ws = wrappers()
+    return dict(ws, field_a_bf16=ws["field_a"].bf16_state,
+                field_u_bf16=ws["field_u"].bf16_state)
+
+
 def counted(fn):
     """(fn(), {kernel: launches}) with every count set to 0 just before
     ``fn`` and read just after."""
-    ws = wrappers()
+    ws = counters()
     for w in ws.values():
         w.launches = 0
     out = fn()
@@ -329,6 +373,8 @@ def _dot_err(pw, py, ref_w, ref_y):
 
 
 def _maxabs(a, b):
+    if a.dtype == torch.bfloat16 or b.dtype == torch.bfloat16:
+        a, b = a.double(), b.double()
     return (a - b).abs().max().item()
 
 
@@ -704,78 +750,91 @@ def _field_op(sysm, coef):
     return FieldStencilOperator.from_assembled(sysm)
 
 
-def phase_field_vs_plain(grids, dev):
-    """field_a and field_u against their plain versions, float32 and
-    bfloat16 coefficients.  grids: (name, model, float32 system on dev).
-    Returns {(grid name, coefficient name): {kernel: record}}."""
+def _field_recs(op, x, cells):
+    """field_a (and field_u where ``op`` has a box) on the card against
+    their plain versions on the same inputs: {kernel: record} with the
+    error relative to the output scale, bytes per call and the times per
+    call of kernel (CUDA events, 50 calls) and plain version."""
     from eddy_currents_3d_tpu_torch.ops.field import (field_a_reference,
                                                       field_u_reference)
     from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
 
+    cs, ss = op.ka.element_size(), x.A.element_size()
+    recs = {}
+    # ---- field_a over the grid, the three A components ----
+    ra = field_a_reference(op.ka, x.A)
+    scale = ra.abs().max().item()
+    ya = field_a(op.ka, x.A)
+    err = _maxabs(ya, ra)
+    recs["field_a"] = {
+        "err": err / scale, "max_abs_err": err,
+        "bytes": cells * (7 * cs + 2 * 3 * ss),
+        "times": (cuda_ms(lambda: field_a(op.ka, x.A), 50),
+                  cuda_ms(lambda: field_a_reference(op.ka, x.A), 4))}
+    if op.box is not None:
+        # ---- field_u over the box, adding into yA ----
+        gout, uout = field_u_reference(op.gu, op.ku, op.da, op.box, x.A, x.U)
+        z0, z1, y0, y1, x0, x1 = op.box
+        sl = (slice(z0, z1), slice(y0, y1), slice(x0, x1))
+        rA = ya.clone()
+        rA[(slice(None),) + sl] += gout
+        rU = torch.zeros_like(x.U)
+        rU[sl] = uout
+        yA = ya.clone()
+        yU = field_u(op, x.A, x.U, yA)
+        uscale = max(rU.abs().max().item(), scale)
+        err = max(_maxabs(yA, rA), _maxabs(yU, rU))
+        nbox = (z1 - z0) * (y1 - y0) * (x1 - x0)
+        buf = ya.clone()
+        recs["field_u"] = {
+            "err": max(_maxabs(yA, rA) / scale, _maxabs(yU, rU) / uscale),
+            "max_abs_err": err,
+            # the kernel's own bytes over the box: 31 coefficients, U, A,
+            # yA read and written, yU written (the wrapper's zero fill of
+            # the rest of yU is a separate fill, not the kernel's)
+            "bytes": nbox * (31 * cs + 11 * ss),
+            "times": (cuda_ms(lambda: field_u(op, x.A, x.U, buf), 50),
+                      cuda_ms(lambda: field_u_reference(
+                          op.gu, op.ku, op.da, op.box, x.A, x.U), 4))}
+    torch.cuda.synchronize()
+    return recs
+
+
+def _say_field_recs(tag, recs, label, tol):
+    """Print each record of :func:`_field_recs`; raise past ``tol``."""
+    for kname, r in recs.items():
+        k_ms, p_ms = r["times"]
+        say(f"[{tag}] {kname} {label}: err {r['err']:.2e} of scale; kernel "
+            f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; "
+            f"{r['bytes'] / 1e6:.1f} MB/call, "
+            f"{r['bytes'] / (k_ms * 1e-3) / 1e9:.0f} GB/s = "
+            f"{r['bytes'] / (k_ms * 1e-3) / HBM_PEAK:.1%} of 3.35 TB/s")
+        if not r["err"] <= tol:
+            raise AssertionError(f"{kname} != plain on {label}: "
+                                 f"{r['err']:.3e}")
+
+
+def phase_field_vs_plain(grids, dev):
+    """field_a and field_u against their plain versions, float32 and
+    bfloat16 coefficients.  grids: (name, model, float32 system on dev).
+    Returns {(grid name, coefficient name): {kernel: record}}."""
     out = {}
     for name, model, sysm in grids:
         nz, ny, nx = model.shape_zyx
-        cells = nz * ny * nx
         x, _ = _inputs(model, dev, 2)
         for cname, coef in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            op = _field_op(sysm, coef)
-            cs = op.ka.element_size()
-            recs = {}
-            # ---- field_a over the grid, the three A components ----
-            ra = field_a_reference(op.ka, x.A)
-            scale = ra.abs().max().item()
-            ya = field_a(op.ka, x.A)
-            err = _maxabs(ya, ra)
-            recs["field_a"] = {
-                "err": err / scale, "max_abs_err": err,
-                "bytes": cells * (7 * cs + 2 * 3 * 4),
-                "times": (cuda_ms(lambda: field_a(op.ka, x.A), 50),
-                          cuda_ms(lambda: field_a_reference(op.ka, x.A), 4))}
-            if op.box is not None:
-                # ---- field_u over the box, adding into yA ----
-                gout, uout = field_u_reference(op.gu, op.ku, op.da, op.box,
-                                               x.A, x.U)
-                z0, z1, y0, y1, x0, x1 = op.box
-                sl = (slice(z0, z1), slice(y0, y1), slice(x0, x1))
-                rA = ya.clone()
-                rA[(slice(None),) + sl] += gout
-                rU = torch.zeros_like(x.U)
-                rU[sl] = uout
-                yA = ya.clone()
-                yU = field_u(op, x.A, x.U, yA)
-                uscale = max(rU.abs().max().item(), scale)
-                err = max(_maxabs(yA, rA), _maxabs(yU, rU))
-                nbox = (z1 - z0) * (y1 - y0) * (x1 - x0)
-                buf = ya.clone()
-                recs["field_u"] = {
-                    "err": max(_maxabs(yA, rA) / scale, _maxabs(yU, rU) / uscale),
-                    "max_abs_err": err,
-                    # 31 coefficients, U, A, yA read and written, yU; plus
-                    # the wrapper's zero fill of the full-grid yU
-                    "bytes": nbox * (31 * cs + 4 + 12 + 24 + 4) + cells * 4,
-                    "times": (cuda_ms(lambda: field_u(op, x.A, x.U, buf), 50),
-                              cuda_ms(lambda: field_u_reference(
-                                  op.gu, op.ku, op.da, op.box, x.A, x.U), 4))}
-            torch.cuda.synchronize()
-            for kname, r in recs.items():
-                k_ms, p_ms = r["times"]
-                say(f"[9] {kname} {name} ({nx}x{ny}x{nz}, {cname} "
-                    f"coefficients): err {r['err']:.2e} of scale; kernel "
-                    f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; "
-                    f"{r['bytes'] / 1e6:.1f} MB/call, "
-                    f"{r['bytes'] / (k_ms * 1e-3) / 1e9:.0f} GB/s = "
-                    f"{r['bytes'] / (k_ms * 1e-3) / HBM_PEAK:.1%} of 3.35 TB/s")
-                if not r["err"] <= ATOL:
-                    raise AssertionError(f"{kname} != plain on {name} "
-                                         f"{cname}: {r['err']:.3e}")
+            recs = _field_recs(_field_op(sysm, coef), x, nz * ny * nx)
+            _say_field_recs(9, recs, f"{name} ({nx}x{ny}x{nz}, {cname} "
+                            f"coefficients)", ATOL)
             out[(name, cname)] = recs
     return out
 
 
-def _field_run(sim, tag, label):
-    """Run ``sim`` with every count at 0; the field kernels must carry it
-    (field_a >= 2 x iterations) and no coded kernel may launch."""
-    (st, diag), counts = counted(lambda: sim.run())
+def _field_run(sim, tag, label, **run_kw):
+    """Run ``sim`` (``run_kw`` to its ``run``) with every count at 0; the
+    field kernels must carry it (field_a >= 2 x iterations) and no coded
+    kernel may launch."""
+    (st, diag), counts = counted(lambda: sim.run(**run_kw))
     its = diag["iterations"]
     if diag["unconverged_steps"] or min(its) <= 0:
         raise AssertionError(f"{label} did not converge: {its}")
@@ -809,7 +868,11 @@ def phase_field_team7(model, dev):
         sim = Simulation(model, torch.float32, device=dev, **kw)
         if sim.coded_op is not None or sim.field_op is None:
             raise AssertionError(f"team7 {label} is not on the field tier")
-        counts[label] = _field_run(sim, 10, f"team7 {label}")[2]
+        _, diag, counts[label] = _field_run(sim, 10, f"team7 {label}")
+        if label == "use_coded=False" and diag["iterations"] != F32_FIELD_ITERS:
+            raise AssertionError(
+                f"team7 f32 field route took {diag['iterations']} iterations, "
+                f"not {F32_FIELD_ITERS}: the f32 field kernels' sums moved")
     step_ratios, _, its32, its64, t_cpu = _per_step_gaps(model, dev, 3,
                                                          precond="mg")
     say(f"[10] mg f32 cuda steps from the f64 cpu state, max |dA| / "
@@ -1158,9 +1221,142 @@ def phase_ilu0(model, dev):
         raise AssertionError(f"ilu0 f32 vs f64 out of bounds: {step_ratios}")
 
 
+def phase_bf16_kernels(grids, dev):
+    """[15b] field_a and field_u at bfloat16 state and bfloat16
+    coefficients against their plain versions, on phase 9's grids.
+    Returns {grid name: {kernel: record}}."""
+    from eddy_currents_3d_tpu_torch.assembly.stencil import State
+
+    out = {}
+    for name, model, sysm in grids:
+        nz, ny, nx = model.shape_zyx
+        x, _ = _inputs(model, dev, 2)
+        xb = State(x.A.to(torch.bfloat16), x.U.to(torch.bfloat16))
+        recs = _field_recs(_field_op(sysm, torch.bfloat16), xb, nz * ny * nx)
+        _say_field_recs("15b", recs, f"{name} ({nx}x{ny}x{nz}, bf16 state "
+                        f"and coefficients)", BF16_TOL)
+        out[name] = recs
+    return out
+
+
+def _bf16_run(sim, label, **run_kw):
+    """:func:`_field_run` of a bfloat16-state ``sim``: the state stays
+    bfloat16 and every field kernel launch is a bfloat16-state one."""
+    st, diag, counts = _field_run(sim, "15b", label, **run_kw)
+    if not all(t.dtype == torch.bfloat16 for t in (st.A, st.U, st.carry)):
+        raise AssertionError(f"{label}: state left bfloat16: {st.A.dtype}")
+    if (counts["field_a_bf16"], counts["field_u_bf16"]) != (
+            counts["field_a"], counts["field_u"]):
+        raise AssertionError(f"{label}: field launches not all at bfloat16 "
+                             f"state: {counts}")
+    return st, diag, counts
+
+
+def phase_bf16_team7(model, dev):
+    """[15b] team7 at bfloat16 state: 20 steps unpreconditioned with VTK
+    (dot_dtype float32, then None), 5 steps each of jacobi, cheb_jacobi
+    (order 8), mg and ilu0; the free run's A after steps 1-3 against the
+    float64 CPU run.  Returns the field kernels' launch counts over the
+    20-step float32-dot run."""
+    from eddy_currents_3d_tpu_torch import Simulation
+
+    bf16 = torch.bfloat16
+    main = Simulation(model, bf16, torch.float32, device=dev)
+    if main.coded_op is not None or main.field_op.ka.dtype != bf16:
+        raise AssertionError("team7 bf16 is not on the bf16 field tier")
+    with tempfile.TemporaryDirectory() as tmp:
+        st, diag, counts = _bf16_run(main, "team7 bf16 dot_dtype=float32",
+                                     output_dir=tmp)
+        outs = [o for _, o in main.steps if o is not None]
+        missing = [f"{k}_{n}.vtk" for n in outs for k in ("field", "src")
+                   if not os.path.isfile(os.path.join(tmp, f"{k}_{n}.vtk"))]
+    if missing or not outs:
+        raise AssertionError(f"bf16 VTK outputs missing: {missing or outs}")
+    say(f"[15b] team7 bf16: {len(outs)} VTK outputs, io {diag['io_s']:.2f} "
+        f"s; {(diag['wall_s'] - diag['io_s']) / diag['total_iterations'] * 1e3:.3f}"
+        f" ms/iteration without VTK")
+    _bf16_run(Simulation(model, bf16, device=dev), "team7 bf16 dot_dtype=None")
+    for kw in ({"precond": "jacobi"},
+               {"precond": "cheb_jacobi", "cheb_order": 8},
+               {"precond": "mg"}, {"precond": "ilu0"}):
+        sim = Simulation(model, bf16, torch.float32, device=dev, **kw)
+        _bf16_run(sim, f"team7 bf16 {kw}", num_steps=5)
+
+    # the free bf16 run against the float64 CPU run, steps 1-3
+    sim64 = Simulation(model, torch.float64, device="cpu")
+    s16, s64 = main.init_state(), sim64.init_state()
+    tol = model.solver.tolerance
+    gaps, its16, its64 = [], [], []
+    t0 = time.perf_counter()
+    for t, _ in main.steps[:3]:
+        s16, i16 = main._step(s16, t)
+        s64, i64 = sim64._step(s64, t)
+        if not (i16.converged and i64.converged):
+            raise AssertionError(f"bf16 cross-check step at t={t} did not "
+                                 "converge")
+        its16.append(i16.iterations)
+        its64.append(i64.iterations)
+        gaps.append((s16.A.cpu().double() - s64.A).abs().max().item()
+                    / (tol * s64.A.abs().max().item()))
+    say(f"[15b] bf16 cuda vs f64 cpu free run, max |dA| / (tol scale): "
+        f"{_fmt(gaps)} after steps 1-3 (limit {BF16_GAP:g} after step 1); "
+        f"iterations bf16 {its16} f64 {its64}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not gaps[0] <= BF16_GAP:
+        raise AssertionError(f"bf16 step 1 is {gaps[0]:.2f} tol scale from "
+                             f"the f64 step 1")
+    return counts
+
+
+def phase_bf16_scale(rec, dev):
+    """[15b] 256x256x64 at bfloat16 state (dot_dtype float32) against the
+    float32 field route, 3 steps each in turns (bf16, f32, f32, bf16); then
+    one step each of those two and of bfloat16 with dot_dtype=None
+    profiled, with the kernels that take the most device time.  A must be
+    finite; convergence is reported."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.assembly.assemble import assemble_operator
+
+    model = rec["model"]
+    sims = {"bf16": Simulation(model, torch.bfloat16, torch.float32,
+                               device=dev, system=assemble_operator(
+                                   model, torch.bfloat16, dev)),
+            "f32": Simulation(model, torch.float32, device=dev,
+                              system=rec["system"], use_coded=False)}
+    for name in ("bf16", "f32", "f32", "bf16"):
+        (st, diag), counts = counted(lambda: sims[name].run(num_steps=3))
+        if not torch.isfinite(st.A.float()).all():
+            raise AssertionError(f"256x256x64 {name}: non-finite A")
+        if counts["field_a"] == 0 or counts["field_a_bf16"] != (
+                counts["field_a"] if name == "bf16" else 0):
+            raise AssertionError(f"256x256x64 {name} launched {counts}")
+        wall = diag["wall_s"]
+        say(f"[15b] 256x256x64 {name} field route x 3 steps: iterations "
+            f"{diag['iterations']}, unconverged steps "
+            f"{diag['unconverged_steps']}, "
+            f"{wall / diag['total_iterations'] * 1e3:.3f} ms/iteration, "
+            f"host blocked on the done read {diag['sync_s'] / wall:.1%}")
+    # one step of each profiled: where the device time goes
+    sims["bf16 dot_dtype=None"] = Simulation(model, torch.bfloat16,
+                                             device=dev,
+                                             system=sims["bf16"].system)
+    for name in ("bf16", "bf16 dot_dtype=None", "f32"):
+        (_, d1), kernels, wall1 = trace(lambda: sims[name].run(num_steps=1))
+        its = d1["total_iterations"]
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+        say(f"[15b] 256x256x64 {name} x 1 step profiled: {its} iterations, "
+            f"{wall1 / its * 1e3:.3f} ms/iteration under the profiler, "
+            f"{_busy(kernels, wall1, its)}; top kernels, device us/iteration "
+            f"(launches/iteration): " + "; ".join(
+                f"{k[:70]} {t / its:.0f} ({c / its:.1f})"
+                for k, (t, c) in top))
+
+
 def phase_device_times(recs, dev):
-    """Device µs per call (torch.profiler, 20 calls) of the five earlier
-    kernels at the shapes their JSON records use."""
+    """Device µs per call (torch.profiler, 20 calls) of the kernels other
+    than bsr_spmm at the shapes their JSON records use (team7 for the field
+    kernels, at float32 and at bfloat16 state)."""
+    from eddy_currents_3d_tpu_torch.assembly.stencil import State
     from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
     from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (coded_slab,
                                                                  coded_stencil)
@@ -1177,7 +1373,6 @@ def phase_device_times(recs, dev):
     zb0, zb1 = sop.cond_z
     xs, ws = _inputs(s["model"], dev, 1)
     Uc = xs.U[zb0:zb1]
-    from eddy_currents_3d_tpu_torch.assembly.stencil import State
     wc = State(ws.A, ws.U[zb0:zb1])
     buf = torch.empty_like(xs.A)
     out["coded_stencil"] = device_ms(lambda: coded_stencil(sop, xs.A, ws.A),
@@ -1188,6 +1383,12 @@ def phase_device_times(recs, dev):
     yb = field_a(fop.ka, x.A)
     out["field_a"] = device_ms(lambda: field_a(fop.ka, x.A), "field_a")
     out["field_u"] = device_ms(lambda: field_u(fop, x.A, x.U, yb), "field_u")
+    bop = _field_op(t7["system"], torch.bfloat16)
+    xb = State(x.A.to(torch.bfloat16), x.U.to(torch.bfloat16))
+    ybb = field_a(bop.ka, xb.A)
+    out["field_a_bf16"] = device_ms(lambda: field_a(bop.ka, xb.A), "field_a")
+    out["field_u_bf16"] = device_ms(lambda: field_u(bop, xb.A, xb.U, ybb),
+                                    "field_u")
     say("[16] device us per call (torch.profiler, 20 calls): " + ", ".join(
         f"{k} {'not measured' if v is None else f'{v * 1e3:.2f}'}"
         for k, v in out.items()))
@@ -1283,6 +1484,9 @@ def main() -> int:
     bsr_launches = phase_matrix_solve(model, dev, B, csr, setup)
     del B
     phase_ilu0(model, dev)
+    bf16_recs = phase_bf16_kernels(field_grids, dev)
+    bf16_counts = phase_bf16_team7(model, dev)
+    phase_bf16_scale(recs["scale256"], dev)
     dev_times = phase_device_times(recs, dev)
     phase_split_details(recs["scale256"], logs,
                         split_recs["scale256"]["launches_per_apply_dots"], dev)
@@ -1298,6 +1502,7 @@ def main() -> int:
     slab = (zb1 - zb0) * ny * nx
     own = nz * ny * nx - slab
     f7 = field_recs[("team7", "f32")]
+    b7 = bf16_recs["team7"]
     box7 = t7["system"].op.box
     nbox7 = (box7[1] - box7[0]) * (box7[3] - box7[2]) * (box7[5] - box7[4])
     bounds = {
@@ -1310,6 +1515,8 @@ def main() -> int:
                             + 16 * slab),
         "field_a": bound(f7["field_a"]["bytes"], 2 * 21 * n7),
         "field_u": bound(f7["field_u"]["bytes"], 2 * 31 * nbox7),
+        "field_a_bf16": bound(b7["field_a"]["bytes"], 2 * 21 * n7),
+        "field_u_bf16": bound(b7["field_u"]["bytes"], 2 * 31 * nbox7),
     }
 
     def record(name, launches, rec, mode=None, library_ms=None):
@@ -1336,6 +1543,12 @@ def main() -> int:
         kernels.append(record(name, field_counts[name], rec))
     kernels.append(record("bsr_spmm", bsr_launches, bsr_recs[1],
                           library_ms=bsr_recs[1]["library_ms"]))
+    for name in ("field_a", "field_u"):
+        rec = dict(b7[name])
+        rec["max_abs_err"] = max(r[name]["max_abs_err"]
+                                 for r in bf16_recs.values() if name in r)
+        kernels.append(record(f"{name}_bf16", bf16_counts[f"{name}_bf16"],
+                              rec))
     for k in kernels:
         d = dev_times[k["name"]]
         say(f"[16] {k['name']}: events {k['ms'] * 1e3:.2f} us, device "

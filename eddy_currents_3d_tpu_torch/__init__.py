@@ -6,7 +6,8 @@ step, and the same legacy-VTK bytes, on one CUDA device (NVIDIA Hopper) or
 on the CPU.  The modules mirror the JAX package's layout, so each
 counterpart sits at the same path.  The float32 solve runs the case-coded
 operator, or, for multigrid, bfloat16 coefficients and the models the
-coded encoder refuses, the field tier (``ops/field.py``): on CUDA
+coded encoder refuses, the field tier (``ops/field.py``), which also
+carries every bfloat16-state solve: on CUDA
 hand-written kernels (``csrc/*.cu``), built with ``nvcc`` at first use; on
 the CPU their plain torch versions.  ILU(0) factors the exported CSR
 (``assembly.assemble.to_csr``) on the host (``csrc/ilu0_host.cpp``, built
@@ -26,7 +27,7 @@ from .ops.field import FieldStencilOperator
 from .ops.sparse import (BSRMatrix, COOMatrix, CSRMatrix, ELLMatrix,
                          bsr_from_scipy, from_scipy)
 from .ops.bsr_cuda import bsr_matvec, bsr_spmm
-from .solvers.bicgstab import bicgstab_wr
+from .solvers.bicgstab import bicgstab_jacobi, bicgstab_wr, bicgstab_wr_right
 from .solvers.ilu0 import ilu0_stencil_factorize
 from .solvers.multigrid import MgUnsupported, build_mg
 from .sim.simulate import Simulation, SimState
@@ -57,6 +58,8 @@ __all__ = [
     "MgUnsupported",
     "build_mg",
     "bicgstab_wr",
+    "bicgstab_wr_right",
+    "bicgstab_jacobi",
     "Simulation",
     "SimState",
     "__version__",

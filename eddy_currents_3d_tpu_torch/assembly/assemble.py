@@ -35,6 +35,7 @@ import torch
 
 from .stencil import StencilOperator
 from ..models.model import Model
+from ..utils.device import resolve_device
 
 __all__ = ["AssembledSystem", "AssemblyError", "assemble_operator", "to_csr"]
 
@@ -110,9 +111,10 @@ def _raise_bad(sel: np.ndarray, why: str):
     )
 
 
-def assemble_operator(model: Model, dtype: torch.dtype, device,
+def assemble_operator(model: Model, dtype: torch.dtype, device=None,
                       inertia_on_faces: bool = False) -> AssembledSystem:
-    """Build the stencil operator; its tensors are ``dtype`` on ``device``.
+    """Build the stencil operator; its tensors are ``dtype`` on ``device``
+    (None: the current CUDA device, and a ``RuntimeError`` without one).
 
     ``inertia_on_faces`` is a beyond-reference extension: the reference adds
     the conducting 2C/dt inertia only on grid-interior cells
@@ -123,6 +125,7 @@ def assemble_operator(model: Model, dtype: torch.dtype, device,
     Neumann) this makes full-cross-section slabs exactly 1-D — used by the
     analytic skin-depth validation (tests/test_physics_skin_depth.py).
     Default False = reference-exact."""
+    device = resolve_device(device)
     nz, ny, nx = model.shape_zyx
     shape = (nz, ny, nx)
     dx, dy, dz = [float(d) for d in model.delta]

@@ -43,14 +43,14 @@ def state_from_numpy(A, U, carry, prev_A=None, prev_U=None,
                      motion_comp=None, *, dtype: torch.dtype,
                      device) -> SimState:
     """A JAX ``SimState`` given as numpy arrays -> this package's
-    :class:`SimState` on ``device``.
+    :class:`SimState` on ``device``, its fields in ``dtype`` (a bfloat16
+    JAX state carries over bit for bit at ``dtype=torch.bfloat16``).
 
     ``prev_A``/``prev_U`` are the extrapolated warm start's history (both
     or neither); the motion arrays default to the initial motion state of
     zero functions and are kept on the host in float64."""
     def dev(x):
-        # copy: arrays handed over from JAX are read-only views
-        return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+        return _tensor(x, device).to(dtype)
 
     if (prev_A is None) != (prev_U is None):
         raise ValueError("give both prev_A and prev_U, or neither")

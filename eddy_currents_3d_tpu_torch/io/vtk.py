@@ -158,8 +158,13 @@ def write_src(
 
 
 def _host(x) -> np.ndarray:
+    """A host array of ``x``; a bfloat16 tensor widened to float32 on its
+    device first (exact; numpy has no bfloat16)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
     return np.asarray(x)
 
 

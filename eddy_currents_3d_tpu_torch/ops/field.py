@@ -3,10 +3,18 @@
 The PyTorch counterpart of ``eddy_currents_3d_tpu/ops/pallas_stencil.py``.
 The operator reads the assembled coefficient fields (``ka`` over the grid;
 ``gu``/``ku``/``da`` over the conductor box, see ``assembly/stencil.py``)
-in float32 or bfloat16 and applies them to float32 (or, on the CPU,
-float64) fields.  It serves every run the case-coded operator does not:
-``precond="mg"``, bfloat16 coefficients (``coeff_dtype``),
-``use_coded=False``, and models the coded encoder refuses.
+in float32 or bfloat16 and applies them to float32 or bfloat16 (or, on
+the CPU, float64) fields.  It serves every run the case-coded operator does
+not: bfloat16 state, ``precond="mg"``, bfloat16 coefficients
+(``coeff_dtype``), ``use_coded=False``, and models the coded encoder
+refuses.
+
+At bfloat16 state both functions upcast coefficients and state to float32,
+sum in float32 in the JAX kernels' order, and round once to bfloat16 at the
+store.  The JAX kernels round every operation in bfloat16 instead, and add
+the grad-U terms into yA after rounding them to bfloat16
+(``pallas_stencil.py:365-368``): ``bf16(bf16(gout) + yA)`` where this tier
+gives ``bf16(gout + yA)``, at most one bfloat16 ulp apart.
 
 Two functions make up one apply, each with a plain torch version here and
 a hand-written CUDA kernel (``csrc/field_stencil.cu``, wrappers in
@@ -48,24 +56,35 @@ __all__ = ["FieldStencilOperator", "field_a_reference", "field_u_reference"]
 _GU_ORDER = ((2, 0), (1, -1), (3, +1), (0, -2), (4, +2))
 
 
+def _upcast(t: torch.Tensor) -> torch.Tensor:
+    """bfloat16 state in float32 (exact); any other dtype as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def field_a_reference(ka: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """Plain version of ``field_a``: ``ka`` (7, nz, ny, nx) applied to every
     leading field of ``A`` (..., nz, ny, nx); a bfloat16 ``ka`` promotes to
-    ``A``'s dtype."""
+    the float32 or float64 sum, a bfloat16 ``A`` is summed in float32 and
+    the result rounded once to bfloat16."""
+    out = A.dtype
+    A = _upcast(A)
     y = ka[0] * A
     for o in range(1, 7):
         axis, d = OFFSETS7[o]
         y = y + ka[o] * shift(A, axis, d)
-    return y
+    return y.to(out)
 
 
 def field_u_reference(gu, ku, da, box, A: torch.Tensor, U: torch.Tensor):
     """Plain version of ``field_u`` on the conductor ``box``: returns
     ``(gout, uout)``, the grad-U terms of the A rows (3, bz, by, bx) and
-    the U rows (bz, by, bx)."""
+    the U rows (bz, by, bx).  At bfloat16 state ``uout`` is rounded once to
+    bfloat16 and ``gout`` stays the float32 sum, to be added into the
+    bfloat16 yA with one rounding (``yA[box] += gout``)."""
+    out = U.dtype
     sl = _boxslice(box)
-    Ub = U[sl]
-    Ab = A[(slice(None),) + sl]
+    Ub = _upcast(U[sl])
+    Ab = _upcast(A[(slice(None),) + sl])
     gout = []
     for c in range(3):
         g = None
@@ -80,13 +99,14 @@ def field_u_reference(gu, ku, da, box, A: torch.Tensor, U: torch.Tensor):
     for c in range(3):
         uout = (uout + da[c, 1] * Ab[c] + da[c, 0] * shift(Ab[c], c, -1)
                 + da[c, 2] * shift(Ab[c], c, +1))
-    return torch.stack(gout), uout
+    return torch.stack(gout), uout.to(out)
 
 
 @dataclass(frozen=True)
 class FieldStencilOperator:
     """The operator over streamed coefficient fields (float32 or
-    bfloat16); on CUDA tensors its ``apply`` runs the two field kernels."""
+    bfloat16), applied to fields of the state's dtype; on CUDA tensors its
+    ``apply`` runs the two field kernels."""
 
     ka: torch.Tensor                # (7, nz, ny, nx)
     gu: torch.Tensor                # (3, 5, bz, by, bx)

@@ -2,9 +2,10 @@
 
 The kernels (``csrc/field_stencil.cu``) replace the TPU kernels
 ``_a_kernel`` and ``_u_kernel`` (``eddy_currents_3d_tpu/ops/pallas_stencil.py:136``,
-``:206``), each with its single-tile twin.  Both take float32 or bfloat16
-coefficients and float32 fields, and are bound by device-memory bytes (see
-the source note).
+``:206``), each with its single-tile twin.  Both take float32 fields (the
+state) with float32 or bfloat16 coefficients, or bfloat16 fields with
+bfloat16 coefficients, sum in float32 and round once to the state's dtype,
+and are bound by device-memory bytes (see the source note).
 
 * :data:`field_a` applies a 7-point coefficient field ``ka`` to every
   leading field of ``A``: the operator's three A components, and every
@@ -15,8 +16,10 @@ the source note).
 
 A CPU tensor goes to the plain torch version (:func:`~.field.field_a_reference`,
 :func:`~.field.field_u_reference`); a CUDA tensor launches the kernel or
-raises.  Each wrapper's ``launches`` counts its kernel's launches, and only
-those.
+raises: a bfloat16 tensor launches the bfloat16-state instantiation, never
+an upcast around the float32 one.  Each wrapper's ``launches`` counts its
+kernels' launches, and only those; ``bf16_state.launches`` counts the
+bfloat16-state launches among them.
 """
 
 from __future__ import annotations
@@ -31,29 +34,57 @@ from .field import field_a_reference, field_u_reference
 
 __all__ = ["field_a", "field_u"]
 
-_COEF_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _coef_dtype(name, t):
-    if t.dtype not in _COEF_DTYPES:
+def _is_bf16(name, t):
+    """1 for a bfloat16 tensor, 0 for a float32 one; raises otherwise."""
+    if t.dtype not in _DTYPES:
         raise ValueError(f"{name} must be float32 or bfloat16 on CUDA, "
                          f"got {t.dtype}")
     return int(t.dtype == torch.bfloat16)
+
+
+def _flags(coef_name, coef, state_name, state):
+    """(coef_bf16, state_bf16) of a kernel's coefficient and state tensors;
+    bfloat16 state takes bfloat16 coefficients only."""
+    coef_bf16, state_bf16 = _is_bf16(coef_name, coef), _is_bf16(state_name,
+                                                                  state)
+    if state_bf16 and not coef_bf16:
+        raise ValueError(f"bfloat16 {state_name} needs bfloat16 {coef_name} "
+                         f"on CUDA, got {coef.dtype}")
+    return coef_bf16, state_bf16
 
 
 def _shares_memory(a, b):
     return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
 
+class _Count:
+    """A launch count of its own: ``launches``."""
+
+    def __init__(self):
+        self.launches = 0
+
+
 class _FieldKernel(CudaKernel):
     source = "field_stencil"
 
+    def __init__(self):
+        super().__init__()
+        self.bf16_state = _Count()
+
     def _bind(self, lib):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.field_a_launch.argtypes = [vp, ci, vp, vp] + [ci] * 4 + [vp]
+        lib.field_a_launch.argtypes = [vp, ci, ci, vp, vp] + [ci] * 4 + [vp]
         lib.field_a_launch.restype = ci
-        lib.field_u_launch.argtypes = [vp, vp, vp, ci] + [vp] * 4 + [ci] * 9 + [vp]
+        lib.field_u_launch.argtypes = ([vp] * 3 + [ci] * 2 + [vp] * 4
+                                       + [ci] * 9 + [vp])
         lib.field_u_launch.restype = ci
+
+    def _counted(self, err, state_bf16):
+        self._raise_on(err)
+        self.bf16_state.launches += state_bf16
 
 
 class _FieldA(_FieldKernel):
@@ -67,18 +98,18 @@ class _FieldA(_FieldKernel):
         if A.dim() not in (3, 4) or tuple(A.shape[-3:]) != (nz, ny, nx):
             raise ValueError(f"A must have shape (L, {nz}, {ny}, {nx}) or "
                              f"({nz}, {ny}, {nx}), got {tuple(A.shape)}")
-        bf16 = _coef_dtype("ka", ka)
+        coef_bf16, state_bf16 = _flags("ka", ka, "A", A)
         dev = A.device
         check_tensors(dev, [("ka", ka, (7, nz, ny, nx), ka.dtype),
-                            ("A", A, A.shape, torch.float32)])
+                            ("A", A, A.shape, A.dtype)])
         lib, _ = self._ready(dev)
         L = A.shape[0] if A.dim() == 4 else 1
         y = torch.empty_like(A)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.field_a_launch(ptr(ka), bf16, ptr(A), ptr(y), L, nx, ny,
-                                     nz, stream)
-        self._raise_on(err)
+            err = lib.field_a_launch(ptr(ka), coef_bf16, state_bf16, ptr(A),
+                                     ptr(y), L, nx, ny, nz, stream)
+        self._counted(err, state_bf16)
         return y
 
 
@@ -103,23 +134,24 @@ class _FieldU(_FieldKernel):
         nz, ny, nx = op.shape_zyx
         z0, z1, y0, y1, x0, x1 = op.box
         box = (z1 - z0, y1 - y0, x1 - x0)
-        bf16 = _coef_dtype("gu", op.gu)
+        coef_bf16, state_bf16 = _flags("gu", op.gu, "A", A)
         dev = A.device
-        f32, cd = torch.float32, op.gu.dtype
+        cd, sd = op.gu.dtype, A.dtype
         check_tensors(dev, [("gu", op.gu, (3, 5) + box, cd),
                             ("ku", op.ku, (7,) + box, cd),
                             ("da", op.da, (3, 3) + box, cd),
-                            ("A", A, (3, nz, ny, nx), f32),
-                            ("U", U, (nz, ny, nx), f32),
-                            ("yA", yA, (3, nz, ny, nx), f32)])
+                            ("A", A, (3, nz, ny, nx), sd),
+                            ("U", U, (nz, ny, nx), sd),
+                            ("yA", yA, (3, nz, ny, nx), sd)])
         lib, _ = self._ready(dev)
         yU = torch.zeros_like(U)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.field_u_launch(
-                ptr(op.gu), ptr(op.ku), ptr(op.da), bf16, ptr(A), ptr(U),
-                ptr(yA), ptr(yU), nx, ny, nz, z0, y0, x0, *box, stream)
-        self._raise_on(err)
+                ptr(op.gu), ptr(op.ku), ptr(op.da), coef_bf16, state_bf16,
+                ptr(A), ptr(U), ptr(yA), ptr(yU), nx, ny, nz, z0, y0, x0,
+                *box, stream)
+        self._counted(err, state_bf16)
         return yU
 
 

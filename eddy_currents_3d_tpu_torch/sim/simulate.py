@@ -11,8 +11,8 @@ restarted BiCGSTAB, then form the post-solve inertial carry
 (EC3D.f90:412-432).
 
 Operator selection follows the JAX package (single device).  float32
-runs one of two tiers, on CUDA through hand-written kernels and on the CPU
-through their plain torch versions:
+runs one of two tiers and bfloat16 the second, on CUDA through
+hand-written kernels and on the CPU through their plain torch versions:
 
 * the case-coded operator (``ops/coded.py``), whose solver space is
   z-compact in U on the split route (``pad_state``/``unpad_state`` around
@@ -22,14 +22,19 @@ through their plain torch versions:
   coefficients in float32 or bfloat16 (``coeff_dtype``), for every other
   float32 run: ``precond="mg"``, ``coeff_dtype``, ``use_coded=False``, and
   models the coded encoder refuses (``CodedUnsupported``) when
-  ``use_coded`` is None.
+  ``use_coded`` is None; and for every bfloat16-state run, with bfloat16
+  coefficients, as the JAX package runs ``dtype=bfloat16`` on its Pallas
+  field kernels (the coded tier is float32 only, and ``use_coded=True``
+  raises).
 
 float64 runs the flat-roll :class:`StencilOperator`, on the CPU only.  The
 solve is BiCGSTABwr, unpreconditioned or right-preconditioned with Jacobi,
 Chebyshev, Chebyshev on Jacobi, the multigrid V-cycle or ILU(0), as in the
-JAX package.  ILU(0) (``solvers/ilu0.py``) factors the exported CSR on the
-host once and applies its factors as stencil operators: field-tier
-operators (the ``field_a``/``field_u`` kernels on the card) with a float32
+JAX package, its reductions in ``dot_dtype`` (None: the state's dtype);
+the coded operator's fused dots serve only ``dot_dtype=None``, as in JAX.
+ILU(0) (``solvers/ilu0.py``) factors the exported CSR on the host once and
+applies its factors as stencil operators: field-tier operators (the
+``field_a``/``field_u`` kernels on the card) with a float32 or bfloat16
 tier, flat-roll operators in float64.  Its factors live on the full grid,
 so the coded operator keeps a full-shape U under it (``compact_u=False``,
 the whole-plane route).  The route choice is not a fallback: both tiers run
@@ -55,6 +60,7 @@ from ..solvers.bicgstab import bicgstab_wr, bicgstab_wr_right
 from ..solvers.chebyshev import bicgstab_wr_cheb
 from ..solvers.ilu0 import ilu0_stencil_factorize
 from ..solvers.multigrid import build_mg
+from ..utils.device import resolve_device
 from .motion import FunctionMotion, MotionState, advance_function, motion_init
 
 __all__ = ["Simulation", "SimState", "StepInfo"]
@@ -104,14 +110,16 @@ def _schedule(tran):
 
 
 class Simulation:
-    """End-to-end simulation of a :class:`Model` on ``device``."""
+    """End-to-end simulation of a :class:`Model` on ``device`` (None: the
+    current CUDA device, and a ``RuntimeError`` without one)."""
 
     def __init__(
         self,
         model: Model,
         dtype: torch.dtype = torch.float32,
+        dot_dtype: Optional[torch.dtype] = None,
         *,
-        device,
+        device=None,
         system: Optional[AssembledSystem] = None,
         precond: Optional[str] = None,
         cheb_order: int = 4,
@@ -120,18 +128,22 @@ class Simulation:
         use_coded: Optional[bool] = None,
         coeff_dtype: Optional[torch.dtype] = None,
     ):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # "cuda" names torch's current CUDA device
             self.device = torch.device("cuda", torch.cuda.current_device())
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"device must be cpu or cuda, got {self.device}")
-        if dtype not in (torch.float32, torch.float64):
-            raise ValueError(f"dtype must be float32 or float64, got {dtype}")
-        if self.device.type == "cuda" and dtype != torch.float32:
+        if dtype not in (torch.float32, torch.bfloat16, torch.float64):
+            raise ValueError(f"dtype must be float32, bfloat16 or float64, "
+                             f"got {dtype}")
+        if self.device.type == "cuda" and dtype == torch.float64:
             raise ValueError(
                 f"dtype={dtype} is not ported to CUDA: the CUDA kernels take "
-                "float32 state (run float64 with device='cpu')")
+                "float32 or bfloat16 state (run float64 with device='cpu')")
+        if dot_dtype not in (None, torch.float32, torch.float64):
+            raise ValueError(f"dot_dtype must be None, float32 or float64, "
+                             f"got {dot_dtype}")
         if coeff_dtype not in (None, torch.bfloat16):
             raise ValueError(f"coeff_dtype must be None or torch.bfloat16, "
                              f"got {coeff_dtype}")
@@ -142,6 +154,7 @@ class Simulation:
             raise ValueError(f"unknown warm_start {warm_start!r}")
         self.model = model
         self.dtype = dtype
+        self.dot_dtype = dot_dtype
         self.warm_start = warm_start
         self.system = (system if system is not None
                        else assemble_operator(model, dtype, self.device))
@@ -158,8 +171,8 @@ class Simulation:
 
         # tier choice (JAX simulate.py:230-309, single device): the coded
         # operator where it applies; the field tier for every other float32
-        # run.  use_coded=None routes CodedUnsupported to the field tier; an
-        # explicit use_coded=True never degrades.
+        # or bfloat16 run.  use_coded=None routes CodedUnsupported to the
+        # field tier; an explicit use_coded=True never degrades.
         coded_ok = (dtype == torch.float32 and coeff_dtype is None
                     and precond != "mg")
         if use_coded and not coded_ok:
@@ -181,7 +194,7 @@ class Simulation:
                 if use_coded:
                     raise
         self.field_op = (FieldStencilOperator.from_assembled(self.system)
-                         if dtype == torch.float32 and self.coded_op is None
+                         if dtype != torch.float64 and self.coded_op is None
                          else None)
         # the solver-space tier (None: float64's flat-roll operator)
         self._tier = (self.coded_op if self.coded_op is not None
@@ -351,11 +364,16 @@ class Simulation:
             b, x0 = tier.pad_state(b), tier.pad_state(x0)
         apply_fn = self.op.apply
         itmax = model.solver.itmax
+        dd = self.dot_dtype
+        # the coded operator's fused dots are in its own float32 sums: only
+        # for dot_dtype=None (JAX simulate.py:591-594, :627-629)
+        fused = coded is not None and dd is None
         if self.precond == "cheb":
             lmax = sysm.gershgorin * 1.01
             res = bicgstab_wr_cheb(apply_fn, b, x0, tol, itmax,
                                    order=self.cheb_order,
-                                   lmin=lmax / self.cheb_ratio, lmax=lmax)
+                                   lmin=lmax / self.cheb_ratio, lmax=lmax,
+                                   dot_dtype=dd)
             sol = res.x
         elif self.precond in ("jacobi", "cheb_jacobi"):
             d, inv = self._jac
@@ -365,29 +383,32 @@ class Simulation:
                 lmax = self._scaled_lmax
                 res = bicgstab_wr_cheb(scaled, b, mul(d, x0), tol, itmax,
                                        order=self.cheb_order,
-                                       lmin=lmax / self.cheb_ratio, lmax=lmax)
+                                       lmin=lmax / self.cheb_ratio, lmax=lmax,
+                                       dot_dtype=dd)
             else:
                 # the fused dots of the right-scaled operator A D^-1 v
                 mvd = ((lambda v, w: coded.apply_dots(mul(inv, v), w))
-                       if coded is not None else None)
+                       if fused else None)
                 res = bicgstab_wr(scaled, b, mul(d, x0), tol, itmax,
-                                  mv_dot=mvd)
+                                  dot_dtype=dd, mv_dot=mvd)
             sol = mul(inv, res.x)
         elif self.precond == "mg":
             res = bicgstab_wr_right(apply_fn, self._mg.apply, b, x0, tol,
-                                    itmax)
+                                    itmax, dot_dtype=dd)
             sol = res.x
         elif self.precond == "ilu0":
             # the factors act on the full grid, which is the solver space
             # here (compact_u=False on the coded route)
             minv = lambda v: self._ilu.apply(v, sweeps=self.ilu_sweeps)
-            res = bicgstab_wr_right(apply_fn, minv, b, x0, tol, itmax)
+            res = bicgstab_wr_right(apply_fn, minv, b, x0, tol, itmax,
+                                    dot_dtype=dd)
             sol = res.x
         else:
             # only the coded operator fuses the dots (in float32); the
             # field tier and float64's flat-roll operator run them apart
-            mvd = coded.apply_dots if coded is not None else None
-            res = bicgstab_wr(apply_fn, b, x0, tol, itmax, mv_dot=mvd)
+            mvd = coded.apply_dots if fused else None
+            res = bicgstab_wr(apply_fn, b, x0, tol, itmax, dot_dtype=dd,
+                              mv_dot=mvd)
             sol = res.x
         if tier is not None:
             sol = tier.unpad_state(sol)
@@ -423,7 +444,8 @@ class Simulation:
         """Run the transient.
 
         * ``output_dir``: write field_N.vtk / src_N.vtk at the jump cadence,
-          synchronously, from one host copy of A and the carry per output.
+          synchronously, from one host copy of A and the carry per output
+          (bfloat16 widened to float32 on the device first: exact).
 
         Returns (final_state, diagnostics dict with per-step iteration
         counts, the wall / io / solver-sync seconds, and the unconverged
@@ -441,7 +463,10 @@ class Simulation:
             infos.append(info)
             if out is not None and output_dir is not None:
                 t1 = _time.perf_counter()
-                host = torch.stack([state.A, state.carry]).cpu().numpy()
+                host = torch.stack([state.A, state.carry])
+                if host.dtype == torch.bfloat16:
+                    host = host.float()
+                host = host.cpu().numpy()
                 write_outputs(self, state._replace(A=host[0], carry=host[1]),
                               info, out, output_dir)
                 t_io += _time.perf_counter() - t1

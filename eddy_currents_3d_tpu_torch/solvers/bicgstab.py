@@ -10,8 +10,12 @@ right-hand side, and an iteration budget of ``itmax + 1`` iterations (the
 reference checks ``iter > itmax`` at the top of the loop).
 
 ``bicgstab_wr_right`` is the right-preconditioned delta form around it
-(``solvers/bicgstab.py:202`` of the JAX package), shared by the Chebyshev
-and multigrid preconditioners.
+(``solvers/bicgstab.py:202`` of the JAX package), shared by the Chebyshev,
+multigrid and ILU(0) preconditioners; ``bicgstab_jacobi`` the
+right-Jacobi form (``:187``).  Each takes ``dot_dtype``, the dtype the
+reductions accumulate in (default: the operands').  At bfloat16 state the
+iterate stays bfloat16: every scalar of the recurrence is cast to the
+leaf's dtype before it scales a leaf.
 
 Operands are :class:`~..assembly.stencil.State` values or plain tensors;
 dot products reduce over every leaf.  Every scalar of the recurrence stays
@@ -29,8 +33,8 @@ import torch
 
 from ..assembly.stencil import State
 
-__all__ = ["bicgstab_wr", "bicgstab_wr_right", "tree_dot", "tree_norm",
-           "tree_axpy", "SolveResult"]
+__all__ = ["bicgstab_wr", "bicgstab_wr_right", "bicgstab_jacobi",
+           "tree_dot", "tree_norm", "tree_axpy", "SolveResult"]
 
 
 def _leaves(a):
@@ -157,8 +161,21 @@ def bicgstab_wr(
                        sync_s=sync_s)
 
 
+def bicgstab_jacobi(apply_fn: Callable, diag, b, x0, tol, itmax: int,
+                    dot_dtype: Optional[torch.dtype] = None) -> SolveResult:
+    """Right-Jacobi-preconditioned BiCGSTABwr: solve ``(A D^-1) y = b``
+    with ``x = D^-1 y`` from ``y0 = D x0``, so the residual history and the
+    convergence test stay those of the original system."""
+    inv = _map(lambda d: 1.0 / d, diag)
+    mul = lambda s, v: _map(torch.mul, s, v)
+    res = bicgstab_wr(lambda v: apply_fn(mul(inv, v)), b, mul(diag, x0),
+                      tol, itmax, dot_dtype=dot_dtype)
+    return res._replace(x=mul(inv, res.x))
+
+
 def bicgstab_wr_right(apply_fn: Callable, minv: Callable, b, x0, tol,
-                      itmax: int) -> SolveResult:
+                      itmax: int,
+                      dot_dtype: Optional[torch.dtype] = None) -> SolveResult:
     """Right-preconditioned BiCGSTABwr in delta form for any linear
     ``minv ~= A^-1`` (Chebyshev, V-cycle, ...).
 
@@ -172,8 +189,8 @@ def bicgstab_wr_right(apply_fn: Callable, minv: Callable, b, x0, tol,
     like the solver's ``done``, decides it before the inner solve starts.
     """
     r0 = _map(torch.sub, b, apply_fn(x0))
-    bnorm = tree_norm(b)
-    rnorm = tree_norm(r0)
+    bnorm = tree_norm(b, dot_dtype)
+    rnorm = tree_norm(r0, dot_dtype)
     safe_b = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
     t0 = time.perf_counter()
     already = bool(rnorm <= tol * bnorm)
@@ -183,7 +200,8 @@ def bicgstab_wr_right(apply_fn: Callable, minv: Callable, b, x0, tol,
                            converged=True, sync_s=sync_s)
     tol_eff = tol * bnorm / rnorm
     zero = _map(torch.zeros_like, b)
-    res = bicgstab_wr(lambda v: apply_fn(minv(v)), r0, zero, tol_eff, itmax)
+    res = bicgstab_wr(lambda v: apply_fn(minv(v)), r0, zero, tol_eff, itmax,
+                      dot_dtype=dot_dtype)
     x = _map(torch.add, x0, minv(res.x))
     return SolveResult(x=x, iterations=res.iterations,
                        relres=res.relres * rnorm / safe_b,

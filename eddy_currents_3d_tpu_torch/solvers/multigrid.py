@@ -8,7 +8,7 @@ with the same construction:
   stencil the Galerkin product R A P is again 7-point, so every level is the
   same coefficient-field stencil apply, :func:`stencil7_apply`: on CUDA the
   hand-written ``field_a`` kernel (``ops/field_cuda.py``), on the CPU the
-  flat-roll torch form.  Coarse coefficients are reshape-sums of the fine
+  flat-roll torch form (and ``field_a``'s plain version at bfloat16).  Coarse coefficients are reshape-sums of the fine
   fields on the host (:func:`galerkin_coarsen`, numpy float64).
 * **Damped-Jacobi smoothing** (omega = 2/3).
 * **Fixed V-cycle** (fixed recursion and sweep counts, zero initial guess),
@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..assembly.stencil import State
+from ..ops.field import field_a_reference
 from ..utils.device import resolve_device
 
 __all__ = ["build_mg", "MGLevel", "MGPreconditioner", "MgUnsupported",
@@ -54,10 +55,14 @@ def stencil7_apply(ka: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y = A x for the 7-offset coefficient fields ``ka`` (7, nz, ny, nx)
     and ``x`` (..., nz, ny, nx).  On CUDA the ``field_a`` kernel; on the
     CPU the flat-roll formulation (wrapped entries are killed by zero
-    boundary coefficients, the invariant of assembly/stencil.py)."""
+    boundary coefficients, the invariant of assembly/stencil.py), except
+    at bfloat16, where ``field_a``'s plain version rounds once as the
+    kernel does (the flat-roll form would round every operation)."""
     if x.device.type != "cpu":
         from ..ops.field_cuda import field_a
         return field_a(ka, x)
+    if x.dtype == torch.bfloat16:
+        return field_a_reference(ka, x)
     nz, ny, nx = ka.shape[1:]
     N = nz * ny * nx
     lead = tuple(x.shape[:-3])

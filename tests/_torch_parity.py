@@ -31,9 +31,13 @@ def pallas_interpret():
 
 
 def host(x) -> np.ndarray:
-    """A JAX array, torch tensor or numpy array as a numpy array."""
+    """A JAX array, torch tensor or numpy array as a numpy array; a
+    bfloat16 tensor as float32 (exact; numpy has no bfloat16)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
     return np.asarray(x)
 
 

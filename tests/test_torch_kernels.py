@@ -1,14 +1,19 @@
 """The hand-written CUDA kernels against their plain torch versions, on
 the card: the whole-plane coded matvec, the split route's stencil and
 conductor-slab kernels, the field tier's field_a and field_u (float32
-and bfloat16 coefficients), and the block-sparse SpMM (float32 and
-float64).  Every test here needs a CUDA device and nvcc and skips without
+and bfloat16 coefficients, float32 and bfloat16 state), and the
+block-sparse SpMM (float32 and float64).  Every test here needs a CUDA device and nvcc and skips without
 them.  The file imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerances are those of the CPU parity tests (tests/test_torch_coded.py):
 3e-6 of the output scale for the matvec, 2e-5 relative for the fused dots.
+At bfloat16 state (bfloat16 coefficients) the field kernels and their
+plain versions both sum in float32 in one order, with no FMA contraction,
+and round once to bfloat16: they must agree bit for bit.  One FMA in the
+kernel would move a cell by at most one bfloat16 ulp, 2^-8 of the output
+scale, which a tolerance of that size could not see.
 The SpMM sums at most width*C products per output in another order than
 the plain einsum: 3e-6 (float32) and 1e-12 (float64) of max(|B|·|X|).
 """
@@ -43,7 +48,6 @@ pytestmark = pytest.mark.cuda
 
 ATOL = 3e-6
 DOT_RTOL = 2e-5
-
 
 
 def _z_through():
@@ -373,8 +377,10 @@ def _nocond_text():
 def test_unported_cuda_options_raise(cuda):
     from eddy_currents_3d_tpu_torch import Simulation
     model = cases.load_case(cases.case_static(shape_xyz=(12, 12, 12), steps=2))
-    with pytest.raises(ValueError, match="dtype must be float32 or float64"):
-        Simulation(model, torch.bfloat16, device=cuda)   # bf16 state
+    sim = Simulation(model, torch.bfloat16, device=cuda)   # bf16 state runs
+    assert sim.coded_op is None and sim.field_op.ka.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="dtype=torch.bfloat16"):
+        Simulation(model, torch.bfloat16, device=cuda, use_coded=True)
     with pytest.raises(ValueError, match="precond='mg'"):
         Simulation(model, torch.float32, device=cuda, precond="mg",
                    use_coded=True)
@@ -461,6 +467,126 @@ def test_field_u_matches_plain(cuda, name, coef):
     y = op.apply(x)
     _close(y.A.cpu(), ref.A, scale)
     _close(y.U.cpu(), ref.U, max(ref.U.abs().max().item(), scale))
+
+
+def _bf16_state(x):
+    return State(x.A.to(torch.bfloat16), x.U.to(torch.bfloat16))
+
+
+def _equal_bf16(got, ref):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    err = (got.double() - ref.double()).abs().max().item()
+    assert torch.equal(got, ref), (err, ref.double().abs().max().item())
+
+
+@pytest.mark.parametrize("name", sorted(FIELD_CASES))
+def test_field_a_bf16_state_matches_plain(cuda, name):
+    op, x = _field_setup(name, "bf16", cuda)
+    xb = _bf16_state(x)
+    n0, b0 = field_a.launches, field_a.bf16_state.launches
+    y = field_a(op.ka, xb.A)
+    torch.cuda.synchronize()
+    assert (field_a.launches, field_a.bf16_state.launches) == (n0 + 1, b0 + 1)
+    r = field_a_reference(op.ka, xb.A)
+    _equal_bf16(y, r)
+    assert torch.equal(field_a(op.ka, xb.A), y)        # repeats bit for bit
+    # a float32 state launch is not counted as a bfloat16-state one
+    field_a(op.ka, x.A)
+    assert field_a.bf16_state.launches == b0 + 2
+
+
+@pytest.mark.parametrize("name", sorted(FIELD_CASES))
+def test_field_u_bf16_state_matches_plain(cuda, name):
+    op, x = _field_setup(name, "bf16", cuda, seed=1)
+    xb = _bf16_state(x)
+    yA = field_a(op.ka, xb.A)
+    if op.box is None:
+        with pytest.raises(ValueError, match="box"):
+            field_u(op, xb.A, xb.U, yA)
+        return
+    rA = yA.clone()
+    n0, b0 = field_u.launches, field_u.bf16_state.launches
+    yU = field_u(op, xb.A, xb.U, yA)
+    torch.cuda.synchronize()
+    assert (field_u.launches, field_u.bf16_state.launches) == (n0 + 1, b0 + 1)
+    gout, uout = field_u_reference(op.gu, op.ku, op.da, op.box, xb.A, xb.U)
+    rA[_box(op)] += gout                    # float32 terms, one rounding
+    rU = torch.zeros_like(xb.U)
+    rU[_box(op)[1:]] = uout
+    _equal_bf16(yA, rA)
+    _equal_bf16(yU, rU)
+    # the whole apply against the same operator's plain apply on the CPU
+    cpu = dataclasses.replace(op, **{f: getattr(op, f).cpu()
+                                     for f in ("ka", "gu", "ku", "da")})
+    ref = cpu.apply(State(xb.A.cpu(), xb.U.cpu()))
+    y = op.apply(xb)
+    assert y.A.dtype == y.U.dtype == torch.bfloat16
+    _equal_bf16(y.A.cpu(), ref.A)
+    _equal_bf16(y.U.cpu(), ref.U)
+
+
+def test_field_wrappers_take_bf16_state_on_the_card(cuda, monkeypatch):
+    """A bfloat16 CUDA tensor launches the bfloat16-state kernel and gets
+    bfloat16 back: no upcast, no plain version; mixed state dtypes, and
+    float32 coefficients with bfloat16 state, are refused."""
+    from eddy_currents_3d_tpu_torch.ops import field_cuda
+    op, x = _field_setup("static", "bf16", cuda)
+    xb = _bf16_state(x)
+    calls = []
+    real = field_cuda.field_a_reference
+    monkeypatch.setattr(field_cuda, "field_a_reference",
+                        lambda *a: calls.append(a) or real(*a))
+    y = field_a(op.ka, xb.A)
+    assert y.dtype == torch.bfloat16 and y.is_cuda and not calls
+    with pytest.raises(ValueError, match="bfloat16"):
+        field_u(op, xb.A, x.U, y)                   # float32 U, bf16 A
+    op32, _ = _field_setup("static", "f32", cuda)
+    with pytest.raises(ValueError, match="needs bfloat16 ka"):
+        field_a(op32.ka, xb.A)
+    with pytest.raises(ValueError, match="needs bfloat16 gu"):
+        field_u(op32, xb.A, xb.U, y)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        field_a(op.ka, x.A.half())
+
+
+BF16_RUNS = {
+    "none_dot_f32": {"dot_dtype": torch.float32},
+    "none_dot_none": {},
+    "jacobi": {"dot_dtype": torch.float32, "precond": "jacobi"},
+    "cheb_jacobi": {"dot_dtype": torch.float32, "precond": "cheb_jacobi",
+                    "cheb_order": 8},
+    "mg": {"dot_dtype": torch.float32, "precond": "mg"},
+    "ilu0": {"dot_dtype": torch.float32, "precond": "ilu0"},
+}
+
+
+@pytest.mark.parametrize("run", sorted(BF16_RUNS))
+def test_bf16_simulation_runs_through_the_field_kernels(cuda, run):
+    from eddy_currents_3d_tpu_torch import Simulation
+    model = cases.load_case(cases.case_static(shape_xyz=(20, 20, 12), steps=3))
+    sim = Simulation(model, torch.bfloat16, device=cuda, **BF16_RUNS[run])
+    assert sim.coded_op is None and sim.field_op.ka.dtype == torch.bfloat16
+    ks = (field_a, field_u, coded_matvec, coded_stencil, coded_slab,
+          field_a.bf16_state, field_u.bf16_state)
+    n = [k.launches for k in ks]
+    st, diag = sim.run()
+    d = [k.launches - n0 for k, n0 in zip(ks, n)]
+    assert not diag["unconverged_steps"]
+    assert st.A.dtype == st.U.dtype == st.carry.dtype == torch.bfloat16
+    assert torch.isfinite(st.A.float()).all()
+    assert d[0] >= 2 * diag["total_iterations"] and d[1] > 0
+    assert d[2:5] == [0, 0, 0]                        # no coded kernel
+    assert d[5:] == d[:2]                             # all at bf16 state
+
+
+def test_simulation_defaults_to_the_card(cuda):
+    from eddy_currents_3d_tpu_torch import Simulation
+    model = cases.load_case(cases.case_static(shape_xyz=(12, 12, 12), steps=2))
+    sim = Simulation(model)
+    assert sim.device.type == "cuda" and sim.system.inert.is_cuda
+    assert assemble_operator(model, torch.float32).inert.is_cuda
+    st, diag = sim.run()
+    assert st.A.is_cuda and not diag["unconverged_steps"]
 
 
 def test_field_a_on_a_coarse_multigrid_level(cuda):

@@ -13,7 +13,8 @@
   (tests/test_coded.py:230-233).
 * A JAX mid-transient state carried across with ``convert`` steps the same
   in both packages; the VTK writers give byte-identical files; importing
-  the port loads no jax.
+  the port loads no jax; with no ``device`` the entry points take the card
+  and raise without one.  (bfloat16 state: tests/test_torch_bf16.py.)
 """
 
 import os
@@ -164,14 +165,23 @@ def test_run_writes_outputs(tmp_path):
         "field_1.vtk", "field_2.vtk", "src_1.vtk", "src_2.vtk"]
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
     model = tcases.load_case(tcases.case_static(shape_xyz=(12, 12, 12), steps=2))
-    with pytest.raises(ValueError, match="dtype must be float32 or float64"):
-        ect.Simulation(model, torch.bfloat16, device=CPU)   # bf16 state
+    with pytest.raises(ValueError, match="dtype must be float32, bfloat16 or "
+                       "float64"):
+        ect.Simulation(model, torch.float16, device=CPU)    # fp16 state
+    with pytest.raises(ValueError, match="dot_dtype"):
+        ect.Simulation(model, torch.bfloat16, torch.bfloat16, device=CPU)
+    with pytest.raises(ValueError, match="dtype=torch.bfloat16"):
+        ect.Simulation(model, torch.bfloat16, device=CPU, use_coded=True)
     with pytest.raises(ValueError, match="warm_start"):
         ect.Simulation(model, torch.float32, device=CPU, warm_start="zero")
-    with pytest.raises(TypeError):
-        ect.Simulation(model, torch.float32)          # no device given
+    # no device given means the card, and raises without one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device: pass device='cpu'"):
+        ect.Simulation(model, torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ect.assemble_operator(model, torch.float32)
 
 
 def test_import_loads_no_jax():
