@@ -2,15 +2,14 @@
 // coded_split.cu), for Hopper (sm_90a): the coefficient constants, the
 // constant+face A stencil of one cell, the conductor terms of one cell (the
 // in-register decode _u_body of eddy_currents_3d_tpu/ops/pallas_coded.py:
-// 1051), guarded neighbour reads and the block reduction of the fused dot
-// partials.
+// 1051), and the dot sums finished in the kernel.
 //
 // The arithmetic takes the neighbour values through accessors, so every
 // kernel evaluates each cell with one copy of the expressions, in one
-// order, wherever its values come from (guarded global reads in
-// coded_matvec.cu, shared-memory planes and registers in coded_split.cu),
-// and each value is fetched where the expression uses it, which keeps few
-// of them live at once:
+// order, wherever its values come from (registers and read-only global
+// loads in coded_matvec.cu, shared-memory planes and registers in
+// coded_split.cu), and each value is fetched where the expression uses it,
+// which keeps few of them live at once:
 //   A accessor: c(comp), m(comp, axis), p(comp, axis): A_comp at the cell,
 //     one cell down and one cell up axis (0 = x, 1 = y, 2 = z), zero
 //     beyond the grid;
@@ -25,12 +24,6 @@
 #include <cstdint>
 
 namespace coded {
-
-// coded_matvec.cu's thread layout: one thread per cell on kTX x kTY (x, y)
-// tiles, one z plane per block
-constexpr int kTX = 32;
-constexpr int kTY = 8;
-constexpr int kWarps = kTX * kTY / 32;
 
 enum Mode : int { kApply = 0, kDots = 1, kDiv = 2 };
 
@@ -170,101 +163,85 @@ __device__ __forceinline__ float conductor(int cd, const AN& a, const UN& u,
   return yu;
 }
 
-// ---- guarded global reads (coded_matvec.cu) ----
+// ---- the dots, finished in the kernel ----
+//
+// Each CTA sums its threads' y.w and y.y in a fixed order and writes one
+// pair; the last CTA to finish (a device-scope counter after
+// __threadfence, which wraps to 0 as the last CTA counts itself) sums all
+// pairs in a fixed order, adds the prior totals and writes the two totals.
+// The counter decides which CTA sums, never the order, so repeated calls
+// give the same bits.
 
-// A scalar field held over planes [z0, z0 + nz) of the grid: all of it, or
-// the conductor slab of the z-compact U.  It reads as zero beyond them.
-struct Planes {
-  const float* p;
-  int z0;
-  int nz;
+struct DotOut {
+  float* partials;     // 2 floats per CTA
+  unsigned* counter;   // CTAs done, modulo the grid's CTAs; 0 between launches
+  const float* prior;  // 2 floats added to the totals, or null
+  float* totals;       // dot(y, w), dot(y, y)
 };
 
-// value of f at (x, y, z), zero beyond the grid and beyond f's planes
-__device__ __forceinline__ float at(const Planes& f, int x, int y, int z,
-                                   const Grid& g) {
-  const int zl = z - f.z0;
-  if (x < 0 || x >= g.nx || y < 0 || y >= g.ny || zl < 0 || zl >= f.nz) {
-    return 0.f;
-  }
-  return __ldg(f.p + (static_cast<size_t>(zl) * g.ny + y) * g.nx + x);
-}
-
-// neighbour at offset d along physical axis a (0 = x, 1 = y, 2 = z)
-__device__ __forceinline__ float nbr(const Planes& f, int x, int y, int z,
-                                     int a, int d, const Grid& g) {
-  return at(f, x + (a == 0 ? d : 0), y + (a == 1 ? d : 0),
-            z + (a == 2 ? d : 0), g);
-}
-
-// A around cell (x, y, z) of the whole grid, flat index i; n = nx ny nz is
-// the stride between components
-struct GlobalA {
-  const float* A;
-  size_t i, n;
-  int x, y, z;
-  Grid g;
-  __device__ __forceinline__ float c(int comp) const {
-    return __ldg(A + comp * n + i);
-  }
-  __device__ __forceinline__ float m(int comp, int ax) const {
-    return nbr(Planes{A + comp * n, 0, g.nz}, x, y, z, ax, -1, g);
-  }
-  __device__ __forceinline__ float p(int comp, int ax) const {
-    return nbr(Planes{A + comp * n, 0, g.nz}, x, y, z, ax, +1, g);
-  }
-};
-
-// U around cell (x, y, z)
-struct GlobalU {
-  Planes U;
-  int x, y, z;
-  Grid g;
-  __device__ __forceinline__ float u0() const { return at(U, x, y, z, g); }
-  __device__ __forceinline__ float n(int ax, int j) const {
-    return nbr(U, x, y, z, ax, j < 2 ? j - 2 : j - 1, g);
-  }
-};
-
-// Sums the threads' pw and py over the block (warp shuffles, then one value
-// per warp in shared memory, added in a fixed order by thread 0: no
-// atomics, so a run repeats bit for bit) and writes the two sums to
-// partials[2 b] and partials[2 b + 1], b the block's linear index.  Every
-// thread of a kTX x kTY block must call it.
-__device__ __forceinline__ void block_dots(float pw, float py,
-                                           float* __restrict__ partials) {
-  __shared__ float sw[kWarps];
-  __shared__ float sy[kWarps];
+// a and b summed over the block into thread 0's a and b: warp shuffles,
+// then the warps' values in a fixed order
+template <int NT>
+__device__ __forceinline__ void block_sum(float& a, float& b, float* sa,
+                                          float* sb) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    pw += __shfl_down_sync(0xffffffffu, pw, off);
-    py += __shfl_down_sync(0xffffffffu, py, off);
+    a += __shfl_down_sync(0xffffffffu, a, off);
+    b += __shfl_down_sync(0xffffffffu, b, off);
   }
-  const int tid = threadIdx.y * kTX + threadIdx.x;
-  if ((tid & 31) == 0) {
-    sw[tid >> 5] = pw;
-    sy[tid >> 5] = py;
+  if ((threadIdx.x & 31) == 0) {
+    sa[threadIdx.x >> 5] = a;
+    sb[threadIdx.x >> 5] = b;
   }
   __syncthreads();
-  if (tid == 0) {
-    float a = 0.f;
-    float b = 0.f;
+  if (threadIdx.x == 0) {
+    a = 0.f;
+    b = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      a += sw[w];
-      b += sy[w];
+    for (int w = 0; w < NT / 32; ++w) {
+      a += sa[w];
+      b += sb[w];
     }
-    const size_t blk =
-        (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
-            gridDim.x + blockIdx.x;
-    partials[2 * blk] = a;
-    partials[2 * blk + 1] = b;
   }
 }
 
-// blocks of one coded_matvec launch over nplanes z planes
-inline dim3 grid_of(int nx, int ny, int nplanes) {
-  return dim3((nx + kTX - 1) / kTX, (ny + kTY - 1) / kTY, nplanes);
+// Writes the CTA's pair; the last CTA of the grid to get here sums every
+// pair in a fixed order and writes prior + sums to totals.  Every thread
+// must call it.
+template <int NT>
+__device__ __forceinline__ void finish_dots(float pw, float py,
+                                            const DotOut& d) {
+  __shared__ float sa[NT / 32];
+  __shared__ float sb[NT / 32];
+  __shared__ bool last;
+  block_sum<NT>(pw, py, sa, sb);
+  const unsigned nblk = gridDim.x * gridDim.y;
+  if (threadIdx.x == 0) {
+    const unsigned b = blockIdx.y * gridDim.x + blockIdx.x;
+    d.partials[2 * b] = pw;
+    d.partials[2 * b + 1] = py;
+    __threadfence();
+    // the last CTA's increment wraps the counter back to 0
+    last = atomicInc(d.counter, nblk - 1) == nblk - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float a = 0.f;
+  float c = 0.f;
+  for (unsigned j = threadIdx.x; j < nblk; j += NT) {
+    a += __ldcg(d.partials + 2 * j);
+    c += __ldcg(d.partials + 2 * j + 1);
+  }
+  block_sum<NT>(a, c, sa, sb);
+  if (threadIdx.x == 0) {
+    if (d.prior != nullptr) {
+      a = __ldcg(d.prior) + a;
+      c = __ldcg(d.prior + 1) + c;
+    }
+    d.totals[0] = a;
+    d.totals[1] = c;
+  }
 }
 
 }  // namespace coded

@@ -30,7 +30,7 @@
 //     U with a two-cell halo) sits in shared memory; the thread keeps its
 //     cells' A at z - 1, z, z + 1 (and U at z - 2 .. z + 2) in registers.
 //     So each A value leaves device memory once and L2 about once per run
-//     of planes, plus the halo, where the one-plane-per-block kernel read
+//     of planes, plus the halo, where a one-plane-per-block kernel reads
 //     it from L2 about three times.
 //   * The planes arrive by cp.async (16-byte copies when nx % 4 == 0 and
 //     the fields are 16-byte aligned, 4-byte copies otherwise; zero-fill
@@ -64,7 +64,7 @@
 //     stencil + slab) and writes the two totals.  The counter decides which
 //     CTA sums, never the order, so repeated calls give the same bits.
 // Every cell is evaluated with coded_cell.cuh's expressions in their
-// order, on the same values coded_matvec.cu reads with guarded loads.
+// order, on the same values coded_matvec.cu reads.
 
 #include <cstring>
 
@@ -211,80 +211,6 @@ struct MarchU {
     return ax == 0 ? w[d] : (ax == 1 ? w[d * rs] : zn[j]);
   }
 };
-
-// ---- the dots, finished in the kernel ----
-
-struct DotOut {
-  float* partials;     // 2 floats per CTA
-  unsigned* counter;   // CTAs done, modulo the grid's CTAs; 0 between launches
-  const float* prior;  // 2 floats added to the totals, or null
-  float* totals;       // dot(y, w), dot(y, y)
-};
-
-// a and b summed over the block into thread 0's a and b: warp shuffles,
-// then the warps' values in a fixed order
-template <int NT>
-__device__ __forceinline__ void block_sum(float& a, float& b, float* sa,
-                                          float* sb) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, off);
-    b += __shfl_down_sync(0xffffffffu, b, off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    sa[threadIdx.x >> 5] = a;
-    sb[threadIdx.x >> 5] = b;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    a = 0.f;
-    b = 0.f;
-#pragma unroll
-    for (int w = 0; w < NT / 32; ++w) {
-      a += sa[w];
-      b += sb[w];
-    }
-  }
-}
-
-// Writes the CTA's pair; the last CTA of the grid to get here sums every
-// pair in a fixed order and writes prior + sums to totals.  Every thread
-// must call it.
-template <int NT>
-__device__ __forceinline__ void finish_dots(float pw, float py,
-                                            const DotOut& d) {
-  __shared__ float sa[NT / 32];
-  __shared__ float sb[NT / 32];
-  __shared__ bool last;
-  block_sum<NT>(pw, py, sa, sb);
-  const unsigned nblk = gridDim.x * gridDim.y;
-  if (threadIdx.x == 0) {
-    const unsigned b = blockIdx.y * gridDim.x + blockIdx.x;
-    d.partials[2 * b] = pw;
-    d.partials[2 * b + 1] = py;
-    __threadfence();
-    // the last CTA's increment wraps the counter back to 0
-    last = atomicInc(d.counter, nblk - 1) == nblk - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  float a = 0.f;
-  float c = 0.f;
-  for (unsigned j = threadIdx.x; j < nblk; j += NT) {
-    a += __ldcg(d.partials + 2 * j);
-    c += __ldcg(d.partials + 2 * j + 1);
-  }
-  block_sum<NT>(a, c, sa, sb);
-  if (threadIdx.x == 0) {
-    if (d.prior != nullptr) {
-      a = __ldcg(d.prior) + a;
-      c = __ldcg(d.prior + 1) + c;
-    }
-    d.totals[0] = a;
-    d.totals[1] = c;
-  }
-}
 
 // ---- the stencil kernel ----
 

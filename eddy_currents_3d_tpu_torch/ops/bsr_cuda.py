@@ -5,7 +5,10 @@ The kernel (``csrc/bsr_spmm.cu``) replaces the TPU kernel ``_kernel``
 (``pallas_sparse.py:39``, launched at ``:73``): ``A @ X`` for a padded
 block-ELL :class:`~.sparse.BSRMatrix` and a dense ``X`` (n_cols, k), float32
 or float64, summed in the blocks' type.  At k = 1 it is bound by the
-blocks' bytes, at k = 128 by FP32 FMAs (see the source note).
+blocks' bytes, at k = 128 by FP32 FMAs (see the source note).  Three thread
+mappings serve it; :func:`spmm_route` picks one from the shape, k, the
+dtype and the operands' alignment, and the launch refuses a route that
+does not fit.
 
 * :data:`bsr_spmm` takes ``(a, x)``; a CPU tensor goes to the plain version
   :func:`bsr_spmm_reference` (``a.matmat(x)``), a CUDA tensor launches the
@@ -26,9 +29,31 @@ import torch
 from .coded_cuda import CudaKernel, check_tensors, cuda_only, ptr
 from .sparse import BSRMatrix
 
-__all__ = ["bsr_spmm", "bsr_matvec", "bsr_spmm_reference"]
+__all__ = ["bsr_spmm", "bsr_matvec", "bsr_spmm_reference", "spmm_route"]
 
 _DTYPES = (torch.float32, torch.float64)
+_ROUTES = ("warp", "lanes", "vec")
+
+
+def spmm_route(block_shape, k: int, itemsize: int = 4,
+               aligned: bool = True) -> str:
+    """The kernel's thread mapping for (R, C) blocks of ``itemsize``-byte
+    values and k columns (see the source note):
+
+    * ``"vec"``: k = 1 with 16-byte vector loads, where blocks, x and y are
+      16-byte aligned (``aligned``), C is a multiple of the vector's
+      16 / itemsize values and a block's vectors divide 32;
+    * ``"warp"``: otherwise k < 32 with C a power of two <= 32 and
+      R * C <= 256;
+    * ``"lanes"``: everything else."""
+    R, C = block_shape
+    vl = 16 // itemsize
+    p = R * (C // vl)
+    if k == 1 and aligned and C % vl == 0 and 0 < p <= 32 and 32 % p == 0:
+        return "vec"
+    if k < 32 and 0 < C <= 32 and C & (C - 1) == 0 and R * C <= 256:
+        return "warp"
+    return "lanes"
 
 
 def bsr_spmm_reference(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -42,16 +67,14 @@ class _BsrSpmm(CudaKernel):
     def _bind(self, lib):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bsr_spmm_launch.argtypes = [vp, vp, vp, vp, ci, cll, ci, ci, ci,
-                                        cll, vp]
+                                        cll, ci, vp]
         lib.bsr_spmm_launch.restype = ci
-        lib.bsr_spmm_route.argtypes = [ci, ci, cll]
-        lib.bsr_spmm_route.restype = ci
 
-    def route(self, block_shape, k: int) -> str:
-        """The kernel's thread mapping for (R, C) blocks and k columns:
-        ``"warp"`` or ``"lanes"`` (see the source note)."""
-        R, C = block_shape
-        return ("warp", "lanes")[self._library().bsr_spmm_route(R, C, k)]
+    @staticmethod
+    def route(block_shape, k: int, dtype=torch.float32,
+              aligned: bool = True) -> str:
+        """The thread mapping a launch takes (:func:`spmm_route`)."""
+        return spmm_route(block_shape, k, dtype.itemsize, aligned)
 
     def __call__(self, a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
         """``A @ X`` for dense ``X`` of shape (n_cols, k)."""
@@ -78,11 +101,14 @@ class _BsrSpmm(CudaKernel):
                             ("x", x, (m, k), dtype)])
         lib, _ = self._ready(dev)
         y = torch.empty((n, k), dtype=dtype, device=dev)
+        aligned = all(t.data_ptr() % 16 == 0 for t in (a.blocks, x, y))
+        route = self.route((R, C), k, dtype, aligned)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.bsr_spmm_launch(ptr(a.block_cols), ptr(a.blocks), ptr(x),
                                       ptr(y), int(dtype == torch.float64), nbr,
-                                      width, R, C, k, stream)
+                                      width, R, C, k, _ROUTES.index(route),
+                                      stream)
         self._raise_on(err)
         return y
 

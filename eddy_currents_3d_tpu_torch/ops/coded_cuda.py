@@ -1,27 +1,40 @@
-"""Wrapper of the hand-written CUDA coded-matvec kernel.
+"""Wrapper of the hand-written CUDA coded-matvec kernel (whole-plane route).
 
 The kernel (``csrc/coded_matvec.cu``) replaces the TPU kernel
 ``_fused_kernel_chunk`` and its decode ``_u_body``
 (``eddy_currents_3d_tpu/ops/pallas_coded.py:405``, ``:1051``).  It is bound
-by device-memory bytes: about 40 B per cell without convection or dots
-(A, U, code and cf read once, yA and yU written once; neighbours come from
-cache).  One thread per cell on (x, y) tiles with one z plane per block
-keeps a warp's neighbour reads on shared cache lines, and cells that do
-not conduct skip the decode and its U, cf and conv reads.  See the source
-note for the rest of the design.
+by device-memory bytes: without convection or dots 40 B per cell of the
+conductor's planes (A, U, code and cf read once, yA and yU written once)
+and 28 B per other cell (A read, yA and yU written); dots add w.A's 12 B,
+and w.U's 4 B on the conductor's planes.  It
+is a z-march in registers: each thread walks one (x, y) column of its
+segment of the plane (consecutive columns in row-major order) through a
+run of planes, carrying A's (and U's) z-neighbours, and the dots are
+finished in the kernel, so ``apply_dots`` is one launch.
+:func:`whole_plan` cuts the planes at the conductor's z-extent: the
+conducting runs (short, listed first) decode the case code, the others
+read only A and skip the decode.
 
 :data:`coded_matvec` serves the coded operator's three entry points on the
 whole-plane route.  A CPU tensor goes to
 :func:`~.coded.coded_apply_reference`, the plain torch version; a CUDA
 tensor launches the kernel or raises.  ``launches`` counts kernel
-launches, and only those.  :class:`CudaKernel`, :func:`check_tensors` and
-:func:`cuda_only` are what this wrapper shares with the split route's
-(``ops/coded_split_cuda.py``) and the field tier's (``ops/field_cuda.py``).
+launches, and only those.  :class:`CudaKernel`, :class:`MarchKernel`,
+:func:`check_tensors` and :func:`cuda_only` are what this wrapper shares
+with the split route's (``ops/coded_split_cuda.py``) and, for the first,
+third and fourth, the field tier's (``ops/field_cuda.py``) and the sparse
+tier's (``ops/bsr_cuda.py``).
+
+The march kernels keep scratch for their dots (a pair of partials per CTA,
+the last-CTA counter) and their table of runs per operator, device and
+stream, so one operator may run on several streams at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
+from dataclasses import dataclass
 from functools import lru_cache
 from typing import Optional
 
@@ -31,9 +44,19 @@ from ..assembly.stencil import State
 from ._build import load_library
 from .coded import coded_apply_reference
 
-__all__ = ["coded_matvec", "CudaKernel", "check_tensors", "cuda_only"]
+__all__ = ["coded_matvec", "CudaKernel", "MarchKernel", "check_tensors",
+           "cuda_only", "WholePlan", "whole_plan", "WHOLE_TY"]
 
 _APPLY, _DOTS, _DIV = 0, 1, 2
+
+# The whole-plane kernel's CTA of 32 x WHOLE_TY threads, one (x, y) column
+# each, as csrc/coded_matvec.cu's WholeTile (its launch refuses more CTAs
+# than it has items); the longest runs of conducting and of
+# other planes an item marches; and the CTAs per SM the plan launches at
+# most.
+WHOLE_TY = 8
+COND_CHUNK, AIR_CHUNK = 2, 4
+WHOLE_CTAS_PER_SM = 4
 
 
 def ptr(t: Optional[torch.Tensor]):
@@ -54,6 +77,57 @@ def pack_consts(consts) -> ctypes.Array:
             + [2.0 / (dt * delta[a]) for a in range(3)]
             + [0.5 / (dt * delta[a]) for a in range(3)])
     return (ctypes.c_float * len(vals))(*vals)
+
+
+def runs(lo, hi, chunk):
+    """[lo, hi) cut into runs of at most ``chunk`` planes, of near-equal
+    length."""
+    m = hi - lo
+    if m <= 0:
+        return []
+    k = -(-m // chunk)
+    return [(lo + j * m // k, lo + (j + 1) * m // k) for j in range(k)]
+
+
+@dataclass(frozen=True)
+class WholePlan:
+    """How the whole-plane kernel covers a grid: item j segments + t
+    marches run j of segment t (columns 32 WHOLE_TY t .. 32 WHOLE_TY (t + 1)
+    - 1 of the plane in row-major order); CTA b takes items b, b + ctas,
+    ..."""
+
+    runs: tuple     # ((z0, z1, conducting), ...): conducting runs first
+    segments: int   # segments of 32 x WHOLE_TY columns of a plane
+    ctas: int       # CTAs launched
+
+    @property
+    def items(self) -> int:
+        return self.segments * len(self.runs)
+
+
+def whole_plan(shape_zyx, cond_z, sms: int = 132) -> WholePlan:
+    """The whole-plane kernel's cover of a grid of ``shape_zyx`` whose
+    conducting cells lie on planes ``cond_z = (zb0, zb1)``, on a card of
+    ``sms`` SMs.
+
+    The conductor's planes are cut into runs of at most COND_CHUNK planes
+    and listed first, so that the items that decode the case code start at
+    once; the planes below and above it into runs of at most AIR_CHUNK,
+    marked not conducting (no cell there has a code other than 0).  At most
+    WHOLE_CTAS_PER_SM CTAs an SM take the items in turn, each finishing its
+    dots once.  At team7 (102x102x24, conductor on planes 2..6) that is 41
+    segments x (3 + 6) runs = 369 items, one CTA each on an H100."""
+    nz, ny, nx = shape_zyx
+    zb0, zb1 = cond_z
+    if not 0 <= zb0 < zb1 <= nz:
+        raise ValueError(f"conductor planes {cond_z} do not fit the grid's "
+                         f"{nz}")
+    air = runs(0, zb0, AIR_CHUNK) + runs(zb1, nz, AIR_CHUNK)
+    table = (tuple((z0, z1, 1) for z0, z1 in runs(zb0, zb1, COND_CHUNK))
+             + tuple((z0, z1, 0) for z0, z1 in air))
+    segments = -(-(nx * ny) // (32 * WHOLE_TY))
+    items = segments * len(table)
+    return WholePlan(table, segments, min(items, WHOLE_CTAS_PER_SM * sms))
 
 
 def cuda_only(name, t):
@@ -127,17 +201,75 @@ class CudaKernel:
         self.launches += 1
 
 
-class _CodedMatvec(CudaKernel):
+class MarchKernel(CudaKernel):
+    """A wrapper of a march kernel (``csrc/coded_march.cuh``): its scratch,
+    made once per operator, device and stream, and its resources."""
+
+    info_fn = ""    # the library's function reporting a kernel's resources
+
+    def __init__(self):
+        super().__init__()
+        self._scratch_of = weakref.WeakKeyDictionary()
+
+    def _cover(self, op, dev):
+        """(CTAs, its table of runs) of this wrapper's kernel over
+        ``op``'s grid on ``dev``."""
+        raise NotImplementedError
+
+    def _scratch(self, op, dev):
+        """(CTAs, partials, counter, run table) of ``op`` on ``dev`` for
+        the current stream: made on that stream at its first launch there,
+        the counter zeroed then and left zero by every launch.  Launches on
+        one stream follow each other; launches on two streams use two sets,
+        so one operator may run on both at once."""
+        key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+        per_op = self._scratch_of.setdefault(op, {})
+        if key not in per_op:
+            ctas, table = self._cover(op, dev)
+            flat = torch.tensor(table, dtype=torch.int32).reshape(-1)
+            per_op[key] = (ctas,
+                           torch.empty((ctas, 2), dtype=torch.float32,
+                                       device=dev),
+                           torch.zeros(1, dtype=torch.int32, device=dev),
+                           flat.to(dev))
+        return per_op[key]
+
+    def _info_args(self, mode, conv):
+        return (mode, int(conv))
+
+    def info(self, mode, conv=False, dev=None):
+        """{registers, static/dynamic shared memory per CTA (bytes),
+        resident CTAs per SM, local bytes per thread} of the kernel a launch
+        in ``mode`` (0 apply, 1 with dots, 2 div) runs."""
+        lib = self._library()
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(dev or torch.device("cuda")):
+            err = getattr(lib, self.info_fn)(*self._info_args(mode, conv),
+                                             out)
+        if err != 0:
+            raise RuntimeError(f"{self.info_fn} failed: CUDA error {err}")
+        return dict(zip(("registers", "static_smem", "dynamic_smem",
+                         "ctas_per_sm", "local_bytes"), out))
+
+
+class _CodedMatvec(MarchKernel):
     source = "coded_matvec"
     consts_len = "coded_matvec_consts_len"
+    info_fn = "coded_matvec_info"
 
     def _bind(self, lib):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.coded_matvec_launch.argtypes = [vp] * 10 + [ci] * 5 + [
-            ctypes.POINTER(ctypes.c_float), vp]
+        lib.coded_matvec_launch.argtypes = (
+            [vp] * 10 + [ci] + [vp] * 3 + [ci] * 6
+            + [ctypes.POINTER(ctypes.c_float), vp])
         lib.coded_matvec_launch.restype = ci
-        lib.coded_matvec_num_blocks.argtypes = [ci, ci, ci]
-        lib.coded_matvec_num_blocks.restype = ctypes.c_longlong
+        lib.coded_matvec_info.argtypes = [ci, ci, ctypes.POINTER(ctypes.c_int)]
+        lib.coded_matvec_info.restype = ci
+
+    def _cover(self, op, dev):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = whole_plan(op.shape_zyx, op.cond_z, sms)
+        return plan.ctas, plan.runs
 
     def __call__(self, op, A: torch.Tensor, U: Optional[torch.Tensor] = None,
                  w: Optional[State] = None):
@@ -172,25 +304,26 @@ class _CodedMatvec(CudaKernel):
                        ("w.U", w.U, (nz, ny, nx), f32)]
         check_tensors(dev, checks)
         lib, kc = self._ready(dev, op.consts)
-        yA = torch.empty_like(A) if mode != _DIV else None
-        yU = torch.empty((nz, ny, nx), dtype=f32, device=dev)
-        parts = (torch.empty((lib.coded_matvec_num_blocks(nx, ny, nz), 2),
-                             dtype=f32, device=dev)
-                 if mode == _DOTS else None)
         with torch.cuda.device(dev):
+            ctas, parts, counter, table = self._scratch(op, dev)
+            yA = torch.empty_like(A) if mode != _DIV else None
+            yU = torch.empty((nz, ny, nx), dtype=f32, device=dev)
+            dots = (torch.empty(2, dtype=f32, device=dev) if mode == _DOTS
+                    else None)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.coded_matvec_launch(
                 ptr(A), ptr(U), ptr(op.code), ptr(op.cf), ptr(op.conv),
                 ptr(w.A if w is not None else None),
                 ptr(w.U if w is not None else None),
-                ptr(yA), ptr(yU), ptr(parts),
-                nx, ny, nz, mode, int(op.inertia_on_faces), kc, stream)
+                ptr(yA), ptr(yU), ptr(parts), ctas, ptr(counter), ptr(dots),
+                ptr(table), len(table) // 3, nx, ny, nz, mode,
+                int(op.inertia_on_faces), kc, stream)
         self._raise_on(err)
         if mode == _DIV:
             return yU
         if mode == _APPLY:
             return yA, yU
-        return yA, yU, parts[:, 0].sum(), parts[:, 1].sum()
+        return yA, yU, dots[0], dots[1]
 
 
 coded_matvec = _CodedMatvec()

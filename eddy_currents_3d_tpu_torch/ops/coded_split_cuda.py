@@ -24,8 +24,8 @@ bit.  See the source note.  :func:`split_plan` is how the kernels cover a
 grid: the stencil kernel's CTAs are (x, y) tiles x runs of owned planes
 (its table of runs is what the launch passes), the slab kernel's CTAs the
 tiles alone.  Each wrapper keeps its partials, counter and run table per
-operator and device: one operator's calls may follow each other freely on
-one stream, but not run on two streams at once.
+operator, device and stream (:class:`~.coded_cuda.MarchKernel`), so one
+operator may run on two streams at once.
 
 A CPU tensor goes to the plain torch version
 (:func:`~.coded.coded_stencil_reference`,
@@ -37,7 +37,6 @@ those.
 from __future__ import annotations
 
 import ctypes
-import weakref
 from dataclasses import dataclass
 from typing import Optional
 
@@ -45,7 +44,7 @@ import torch
 
 from ..assembly.stencil import State
 from .coded import coded_slab_reference, coded_stencil_reference
-from .coded_cuda import CudaKernel, check_tensors, cuda_only, ptr
+from .coded_cuda import MarchKernel, check_tensors, cuda_only, ptr, runs
 
 __all__ = ["coded_stencil", "coded_slab", "SplitPlan", "split_plan",
            "plan_of", "STENCIL_TILE", "SLAB_TILE"]
@@ -84,16 +83,6 @@ def _tiles(ny, nx, tile):
     return -(-nx // (32 * vx)) * -(-ny // ty)
 
 
-def _runs(lo, hi, chunk):
-    """[lo, hi) cut into runs of at most ``chunk`` planes, of near-equal
-    length."""
-    m = hi - lo
-    if m <= 0:
-        return []
-    k = -(-m // chunk)
-    return [(lo + j * m // k, lo + (j + 1) * m // k) for j in range(k)]
-
-
 def split_plan(shape_zyx, cond_z) -> SplitPlan:
     """The split pair's cover of a grid of ``shape_zyx`` whose slab is
     ``cond_z = (zb0, zb1)``.
@@ -107,9 +96,9 @@ def split_plan(shape_zyx, cond_z) -> SplitPlan:
     one wave at 2 per SM."""
     nz, ny, nx = shape_zyx
     zb0, zb1 = cond_z
-    chunks = _runs(0, zb0, CHUNK) + _runs(zb1, nz, CHUNK)
+    chunks = runs(0, zb0, CHUNK) + runs(zb1, nz, CHUNK)
     return SplitPlan(tuple(chunks), _tiles(ny, nx, STENCIL_TILE),
-                     tuple(_runs(0, zb1 - zb0, SLAB_CHUNK)),
+                     tuple(runs(0, zb1 - zb0, SLAB_CHUNK)),
                      _tiles(ny, nx, SLAB_TILE))
 
 
@@ -137,14 +126,11 @@ def _vec(nx, *tensors) -> int:
                                    for t in tensors if t is not None))
 
 
-class _SplitKernel(CudaKernel):
+class _SplitKernel(MarchKernel):
     source = "coded_split"
     consts_len = "coded_split_consts_len"
+    info_fn = "coded_split_info"
     kernel = None    # coded_split_info's index of this wrapper's kernel
-
-    def __init__(self):
-        super().__init__()
-        self._scratch_of = weakref.WeakKeyDictionary()
 
     def _bind(self, lib):
         vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -158,45 +144,15 @@ class _SplitKernel(CudaKernel):
         lib.coded_split_info.argtypes = [ci] * 3 + [ctypes.POINTER(ctypes.c_int)]
         lib.coded_split_info.restype = ci
 
-    def _cover(self, plan):
-        """(CTAs, runs) of this wrapper's kernel in ``plan``."""
-        raise NotImplementedError
-
-    def _scratch(self, op, dev):
-        """(plan, partials, counter, run table) of ``op`` on ``dev``: made
-        once, the counter zeroed then and left zero by every launch.  One
-        operator's launches share them, so they must follow each other on
-        one stream."""
-        per_op = self._scratch_of.setdefault(op, {})
-        if dev not in per_op:
-            plan = plan_of(op)
-            ctas, runs = self._cover(plan)
-            table = torch.tensor(runs, dtype=torch.int32).reshape(-1)
-            per_op[dev] = (plan,
-                           torch.empty((ctas, 2), dtype=torch.float32,
-                                       device=dev),
-                           torch.zeros(1, dtype=torch.int32, device=dev),
-                           table.to(dev))
-        return per_op[dev]
-
-    def info(self, mode, conv=False, dev=None):
-        """{registers, static/dynamic shared memory per CTA (bytes),
-        resident CTAs per SM, local bytes per thread} of the kernel a launch
-        in ``mode`` (0 apply, 1 with dots, 2 div) runs."""
-        lib = self._library()
-        out = (ctypes.c_int * 5)()
-        with torch.cuda.device(dev or torch.device("cuda")):
-            err = lib.coded_split_info(self.kernel, mode, int(conv), out)
-        if err != 0:
-            raise RuntimeError(f"coded_split_info failed: CUDA error {err}")
-        return dict(zip(("registers", "static_smem", "dynamic_smem",
-                         "ctas_per_sm", "local_bytes"), out))
+    def _info_args(self, mode, conv):
+        return (self.kernel, mode, int(conv))
 
 
 class _CodedStencil(_SplitKernel):
     kernel = 0
 
-    def _cover(self, plan):
+    def _cover(self, op, dev):
+        plan = plan_of(op)
         return plan.stencil_ctas, plan.chunks
 
     def __call__(self, op, A: torch.Tensor, wA: Optional[torch.Tensor] = None):
@@ -221,15 +177,14 @@ class _CodedStencil(_SplitKernel):
             # the slab covers the grid: the stencil kernel owns no plane
             return yA if wA is None else (yA, torch.zeros(2, dtype=f32,
                                                           device=dev))
-        plan, parts, counter, table = self._scratch(op, dev)
         dots = torch.empty(2, dtype=f32, device=dev) if wA is not None else None
         with torch.cuda.device(dev):
+            ctas, parts, counter, table = self._scratch(op, dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.coded_stencil_launch(
-                ptr(A), ptr(wA), ptr(yA), ptr(parts), plan.stencil_ctas,
-                ptr(counter), ptr(dots), ptr(table), len(plan.chunks),
-                _vec(nx, A, wA), nx, ny, nz, zb0, zb1 - zb0,
-                int(wA is not None), kc, stream)
+                ptr(A), ptr(wA), ptr(yA), ptr(parts), ctas, ptr(counter),
+                ptr(dots), ptr(table), len(table) // 2, _vec(nx, A, wA),
+                nx, ny, nz, zb0, zb1 - zb0, int(wA is not None), kc, stream)
         self._raise_on(err)
         return yA if wA is None else (yA, dots)
 
@@ -237,7 +192,8 @@ class _CodedStencil(_SplitKernel):
 class _CodedSlab(_SplitKernel):
     kernel = 1
 
-    def _cover(self, plan):
+    def _cover(self, op, dev):
+        plan = plan_of(op)
         return plan.slab_ctas, plan.slab_chunks
 
     def __call__(self, op, A: torch.Tensor, U_c: Optional[torch.Tensor] = None,
@@ -289,19 +245,19 @@ class _CodedSlab(_SplitKernel):
             checks.append(("prior", prior, (2,), f32))
         check_tensors(dev, checks)
         lib, kc = self._ready(dev, op.consts)
-        plan, parts, counter, table = self._scratch(op, dev)
         yU = torch.empty((nzc, ny, nx), dtype=f32, device=dev)
         dots = torch.empty(2, dtype=f32, device=dev) if mode == _DOTS else None
         vec = _vec(nx, A, U_c, op.code, op.cf, op.conv,
                    *((w.A, w.U) if w is not None else ()))
         with torch.cuda.device(dev):
+            ctas, parts, counter, table = self._scratch(op, dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.coded_slab_launch(
                 ptr(A), ptr(U_c), ptr(op.code), ptr(op.cf), ptr(op.conv),
                 ptr(w.A if w is not None else None),
                 ptr(w.U if w is not None else None),
-                ptr(yA), ptr(yU), ptr(parts), plan.slab_ctas, ptr(counter),
-                ptr(prior), ptr(dots), ptr(table), len(plan.slab_chunks),
+                ptr(yA), ptr(yU), ptr(parts), ctas, ptr(counter),
+                ptr(prior), ptr(dots), ptr(table), len(table) // 2,
                 vec, nx, ny, nz, zb0, nzc, mode, int(op.inertia_on_faces),
                 kc, stream)
         self._raise_on(err)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""The split pair (coded_stencil, coded_slab) on one CUDA card: another
-checkout's build against this tree's.
+"""The coded kernels (coded_matvec, coded_stencil, coded_slab) and
+bsr_spmm on one CUDA card: another checkout's build against this tree's.
 
-    python3 split_bench.py --parent DIR [--out OUT]
+    python3 split_bench.py --parent DIR [--out OUT] [--kernels-only]
+    python3 split_bench.py --probe
+    python3 split_bench.py --witness
 
 DIR is another checkout of the repository (an unpacked ``git archive`` of
 the parent commit, say, in a directory ``.gitignore`` lists; it needs
@@ -10,19 +12,38 @@ the parent commit, say, in a directory ``.gitignore`` lists; it needs
 in turns on the same card, DIR, this tree, this tree, DIR; each builds its
 own kernels and runs its own ``chip_smoke.py`` phases 3 (coded_matvec
 against its plain version), 4 (the split pair against its plain versions),
-7 (256x256x64 on both routes) and 16 (device µs per call), then profiles 5
-split steps at 256x256x64 (device µs per iteration, busy share), hashes the
-outputs of coded_matvec (team7, convection, scale256: apply, apply_dots,
-apply_div) and of the split pair (scale256 and convection: apply,
-apply_dots, apply_div) on inputs made from fixed seeds, and takes step 1
-of 256x256x64 on both routes, each with its kernels' fused dots and with
-float64 sums of the same products in their place, against the port's
-float64 step 1 on the CPU (computed by the first process, kept for the
-others in a temporary directory): max |dA| / (tol scale) of each run to
-the float64 state and between the routes, the fused dots' largest error,
-and the call at which the two routes' dots part.  The last lines compare the hashes: coded_matvec of
-DIR against this tree, the split pair of DIR against this tree, and within
-each build the split pair against coded_matvec.
+7 (256x256x64 on both routes), 13 (bsr_spmm against its plain version, and
+its times at team7), 14 (the matrix-form solve) and 16 (device µs per
+call, coded_slab's among them); then
+
+* the whole-plane matvec probe (``--probe``, below);
+* profiles 20 team7 main-path steps (ms/iteration, device µs/iteration,
+  busy share, device launches per iteration) and 5 split steps at
+  256x256x64 (device µs per iteration, busy share);
+* hashes, on inputs made from fixed seeds, the outputs yA and yU of
+  coded_matvec (team7, convection, scale256: apply, apply_dots,
+  apply_div; its dots apart), of the split pair (scale256 and convection:
+  apply, apply_dots, apply_div) and of bsr_spmm on team7's exported
+  operator at k = 1 and k = 128;
+* takes step 1 of 256x256x64 on both routes, each with its kernels'
+  fused dots and with float64 sums of the same products in their place,
+  against the port's float64 step 1 on the CPU (computed by the first
+  process, kept for the others in a temporary directory): max |dA| /
+  (tol scale) of each run to the float64 state and between the routes,
+  the fused dots' largest error, and the call at which the two routes'
+  dots part.
+
+The last lines compare the hashes (DIR against this tree, and within each
+build the split pair against coded_matvec) and give each build's numbers.
+``--kernels-only`` leaves out the 256x256x64 runs (phase 7, the split
+profile and the step-1 witness), which take most of the time.
+
+``--probe`` alone measures this tree's whole-plane matvec at team7: its
+registers, spills and resident CTAs per SM, device µs per call of apply,
+apply_dots (the kernel, and every kernel the call launches) and apply_div,
+the same with every case code set to 0 (no decode), and coded_slab
+launched over the whole grid.  ``--witness`` alone takes this tree's
+step-1 witness (the last item above), for a change of the dots' order.
 
 Every process's full output goes to OUT (default split_bench_out/); the
 summary is printed.  Without a CUDA device the script exits 1.
@@ -85,7 +106,8 @@ def _hashes(cs, recs, dev):
         yA, yU = coded_matvec(op, x.A, x.U)
         dA, dU, pw, py = coded_matvec(op, x.A, x.U, w)
         dv = coded_matvec(op, x.A)
-        out[f"matvec {name}"] = _digest(yA, yU, dA, dU, pw, py, dv)
+        out[f"matvec {name}"] = _digest(yA, yU, dA, dU, dv)
+        out[f"matvec dots {name}"] = [float(pw), float(py)]
         if name == "team7":
             continue
         prev = coded._WHOLE_PLANE_BUDGET
@@ -104,6 +126,86 @@ def _hashes(cs, recs, dev):
         out[f"split == matvec {name}"] = bool(
             torch.equal(sA, yA) and torch.equal(sU, yU[zb0:zb1])
             and torch.equal(sv, dv[zb0:zb1]))
+    return out
+
+
+H100_SMS = 132
+WHOLE_KERNELS = ("coded_matvec_kernel", "whole_march")   # parent, change
+WHOLE_PATTERNS = ("coded_matvec_kernelILi1ELb0E", "whole_marchILi1ELb0E")
+
+
+def _per_call(cs, fn, names, calls=20):
+    """(device µs per launch of the kernels whose name holds one of
+    ``names``, device µs per call of every kernel, device launches per
+    call) over ``calls`` calls of ``fn``.  The profiler may miss an event,
+    so each kernel counts as its mean time times its launches a call,
+    rounded."""
+    fn()
+    _, kernels, _ = cs.trace(lambda: [fn() for _ in range(calls)])
+    own = [(t, c) for k, (t, c) in kernels.items()
+           if any(n in k for n in names)]
+    per = {k: (t / c, round(c / calls)) for k, (t, c) in kernels.items()
+           if c}
+    return (sum(t for t, _ in own) / max(sum(c for _, c in own), 1),
+            sum(m * r for m, r in per.values()),
+            sum(r for _, r in per.values()))
+
+
+def _ptxas_regs(line):
+    """Registers per thread in a ptxas "Used N registers" line, or None."""
+    import re
+    m = re.search(r"Used (\d+) registers", line)
+    return int(m.group(1)) if m else None
+
+
+def _matvec_probe(cs, rec, dev, log):
+    """The whole-plane coded matvec at team7: its resources, device µs per
+    call in each mode, the same on team7's grid with no conducting cell
+    (code 0 everywhere: no decode), and coded_slab launched over the whole
+    grid (cond_z = (0, nz), full-shape U): the split route's z-march."""
+    import dataclasses
+
+    import torch
+
+    from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
+    from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (coded_slab,
+                                                                 plan_of)
+
+    op = rec["op"]
+    nz, ny, nx = op.shape_zyx
+    x, w = cs._inputs(rec["model"], dev, 0)
+    out = {}
+    for pat in WHOLE_PATTERNS:
+        ptx = cs._ptxas(log, pat)
+        if ptx != "not in the build log":
+            out["ptxas"] = ptx
+    regs = _ptxas_regs(out.get("ptxas", ""))
+    if hasattr(coded_matvec, "info"):
+        out["ctas_per_sm"] = coded_matvec.info(1, False, dev)["ctas_per_sm"]
+    elif regs:
+        # the parent (256 threads, 64 B of static shared memory): the
+        # occupancy rule, registers allocated in units of 8 per thread
+        out["ctas_per_sm"] = min(8, 65536 // (-(-regs // 8) * 8 * 256))
+    zero = dataclasses.replace(op, code=torch.zeros_like(op.code))
+    for label, o in (("team7", op), ("no conductor", zero)):
+        for mode, fn in (("apply", lambda o=o: coded_matvec(o, x.A, x.U)),
+                         ("apply_dots", lambda o=o: coded_matvec(o, x.A, x.U,
+                                                                 w)),
+                         ("apply_div", lambda o=o: coded_matvec(o, x.A))):
+            k_us, all_us, n = _per_call(cs, fn, WHOLE_KERNELS)
+            out[f"{label} {mode}"] = {"kernel_us": k_us, "all_us": all_us,
+                                      "launches": n}
+    whole = dataclasses.replace(op, cond_z=(0, nz), compact_u=False)
+    yA = torch.empty_like(x.A)
+    k_us, _, _ = _per_call(cs, lambda: coded_slab(whole, x.A, x.U, yA, w),
+                           ("slab_march",))
+    plan = plan_of(whole)
+    info = coded_slab.info(1, False, dev)
+    out["slab_march over the grid"] = {
+        "kernel_us": k_us, "ctas": plan.slab_ctas,
+        "waves": plan.slab_ctas / (info["ctas_per_sm"] * H100_SMS),
+        "ctas_per_sm": info["ctas_per_sm"], "registers": info["registers"]}
+    cs.say(f"[probe] coded_matvec team7 {nx}x{ny}x{nz}: " + json.dumps(out))
     return out
 
 
@@ -186,26 +288,47 @@ def _step1_gaps(rec, dev, store):
     return out
 
 
-def child(root, tag, store):
-    """One build's phases 3, 4, 7 and 16, a profile, the hashes and the
-    float64 witness."""
+def _bsr_hashes(B, dev):
+    """Hashes of bsr_spmm's outputs on B at k = 1 and k = 128."""
+    import numpy as np
     import torch
 
-    cs = _load_smoke(root)
-    if not torch.cuda.is_available():
-        print("split_bench: no CUDA device", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda:0")
-    card = cs.phase_device()
-    cs.phase_build()
-    grids = _grids()
-    recs = cs.phase_kernel_vs_plain(grids, dev)
-    cs.phase_split_vs_plain([grids[2], grids[1]], dev)
-    cs.phase_scale(recs["scale256"], dev)
-    times = cs.phase_device_times(recs, dev)
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import bsr_spmm
+    rng = np.random.default_rng(9)
+    out = {}
+    for k in (1, 128):
+        x = torch.from_numpy(rng.standard_normal((B.shape[1], k))).to(
+            dev, torch.float32)
+        out[f"bsr k={k} team7"] = _digest(bsr_spmm(B, x))
+    return out
+
+
+def _team7_profile(cs, dev):
+    """20 team7 main-path steps (no VTK) under the profiler."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.testing.cases import (case_static,
+                                                          load_case)
+    import torch
+
+    model = load_case(case_static(shape_xyz=(102, 102, 24), steps=20))
+    sim = Simulation(model, torch.float32, device=dev)
+    sim.run(num_steps=2)                              # builds, warms up
+    (_, diag), kernels, wall = cs.trace(lambda: sim.run())
+    its = diag["total_iterations"]
+    dev_s = sum(t for t, _ in kernels.values()) / 1e6
+    return {"iterations": its,
+            "ms_per_iteration": wall / its * 1e3,
+            "device_us_per_iteration": dev_s / its * 1e6,
+            "busy": dev_s / wall,
+            "launches_per_iteration": sum(c for _, c in kernels.values())
+            / its}
+
+
+def _scale256_runs(cs, rec, dev, store, tag):
+    """5 split steps at 256x256x64 profiled, and the step-1 witness."""
+    import torch
 
     from eddy_currents_3d_tpu_torch import Simulation
-    rec = recs["scale256"]
     sim = Simulation(rec["model"], torch.float32, device=dev,
                      system=rec["system"])
     (_, diag), kernels, wall = cs.trace(lambda: sim.run(num_steps=5))
@@ -216,7 +339,14 @@ def child(root, tag, store):
           f"iterations {diag['iterations']}, {wall / its * 1e3:.3f} "
           f"ms/iteration under the profiler, device {dev_us:.1f} "
           f"us/iteration, busy {busy:.1%}", flush=True)
-    gaps = _step1_gaps(rec, dev, store)
+    gaps = _say_gaps(tag, _step1_gaps(rec, dev, store))
+    return ({"iterations": diag["iterations"],
+             "ms_per_iteration": wall / its * 1e3,
+             "device_us_per_iteration": dev_us, "busy": busy}, gaps)
+
+
+def _say_gaps(tag, gaps):
+    """Print the step-1 witness of :func:`_step1_gaps`; returns it."""
     print(f"[split_bench {tag}] 256x256x64 step 1, max |dA| / (tol scale) "
           f"to float64: " + ", ".join(
               f"{run} {gaps[run]:.4f}" for run in gaps["iterations"]
@@ -226,15 +356,91 @@ def child(root, tag, store):
           f"{gaps['dot_err']}; the routes' fused dots part at call "
           f"{gaps['first_parting_call']} of {gaps['fused_calls']}",
           flush=True)
+    return gaps
+
+
+def child(root, tag, store, scale_runs=True):
+    """One build's phases 3, 4, 7, 13, 14 and 16, the matvec probe, the
+    profiles, the hashes and the float64 witness; without ``scale_runs``
+    not phase 7, the split profile or the witness (the 256x256x64 runs)."""
+    import torch
+
+    cs = _load_smoke(root)
+    if not torch.cuda.is_available():
+        print("split_bench: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda:0")
+    card = cs.phase_device()
+    logs = cs.phase_build()
+    grids = _grids()
+    recs = cs.phase_kernel_vs_plain(grids, dev)
+    cs.phase_split_vs_plain([grids[2], grids[1]], dev)
+    if scale_runs:
+        cs.phase_scale(recs["scale256"], dev)
+    times = cs.phase_device_times(recs, dev)
+    t7 = recs["team7"]
+    B, csr, setup, bsr_recs = cs.phase_bsr_vs_plain(t7["model"],
+                                                     t7["system"], dev)
+    cs.phase_matrix_solve(t7["model"], dev, B, csr, setup)
+    bsr = {k: {"device_us": (None if r["device_ms"] is None
+                             else r["device_ms"] * 1e3),
+               "events_us": r["times"][0] * 1e3}
+           for k, r in bsr_recs.items() if k in (1, 128)}
+    bsr_hashes = _bsr_hashes(B, dev)
+    del B
+    probe = _matvec_probe(cs, t7, dev, logs.get("coded_matvec", ""))
+    team7 = _team7_profile(cs, dev)
+    print(f"[split_bench {tag}] team7 x 20 steps profiled: {team7}",
+          flush=True)
+
+    profiled = gaps = None
+    if scale_runs:
+        profiled, gaps = _scale256_runs(cs, recs["scale256"], dev, store, tag)
     res = {"tag": tag, "root": root, "card": card,
            "device_us": {k: None if v is None else v * 1e3
                          for k, v in times.items()},
-           "profiled": {"iterations": diag["iterations"],
-                        "ms_per_iteration": wall / its * 1e3,
-                        "device_us_per_iteration": dev_us, "busy": busy},
-           "step1_gaps": gaps,
-           "hashes": _hashes(cs, recs, dev)}
+           "profiled": profiled,
+           "step1_gaps": gaps, "bsr_spmm": bsr, "probe": probe,
+           "team7": team7,
+           "hashes": dict(_hashes(cs, recs, dev), **bsr_hashes)}
     print(TAG + json.dumps(res), flush=True)
+    return 0
+
+
+def probe():
+    """The whole-plane matvec probe of this tree alone."""
+    import torch
+
+    cs = _load_smoke(HERE)
+    if not torch.cuda.is_available():
+        print("split_bench: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda:0")
+    cs.phase_device()
+    logs = cs.phase_build()
+    model, sysm, op = cs._case_ops(_grids()[0][1], dev)
+    _matvec_probe(cs, {"model": model, "op": op}, dev,
+                  logs.get("coded_matvec", ""))
+    return 0
+
+
+def witness():
+    """The step-1 witness (:func:`_step1_gaps`) of this tree alone."""
+    import torch
+
+    cs = _load_smoke(HERE)
+    if not torch.cuda.is_available():
+        print("split_bench: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda:0")
+    cs.phase_device()
+    model, sysm, _ = cs._case_ops(_grids()[2][1], dev)
+    store = tempfile.mkdtemp(prefix="split_bench_")
+    try:
+        _say_gaps("this tree", _step1_gaps({"model": model, "system": sysm},
+                                           dev, store))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
     return 0
 
 
@@ -247,7 +453,8 @@ def _run(args, log):
                               text=True, timeout=1200)
     lines = open(log).read().splitlines()
     for line in lines:
-        if line.startswith(("[3]", "[4]", "[7]", "[16]", "[split_bench")):
+        if line.startswith(("[3]", "[4]", "[7]", "[13]", "[14]", "[16]",
+                            "[probe]", "[split_bench")):
             print(line, flush=True)
     if proc.returncode != 0:
         print("\n".join(lines[-30:]), flush=True)
@@ -261,11 +468,22 @@ def main():
     ap.add_argument("--parent", help="another checkout to compare with")
     ap.add_argument("--out", default=os.path.join(HERE, "split_bench_out"),
                     help="directory for each process's full output")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="with --parent: skip the 256x256x64 runs (phase 7, "
+                    "the split profile, the step-1 witness)")
+    ap.add_argument("--probe", action="store_true",
+                    help="only the whole-plane matvec probe of this tree")
+    ap.add_argument("--witness", action="store_true",
+                    help="only the step-1 witness of this tree")
     ap.add_argument("--child", nargs=3, metavar=("ROOT", "TAG", "STORE"),
                     help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
-        return child(*a.child)
+        return child(*a.child, scale_runs=not a.kernels_only)
+    if a.probe:
+        return probe()
+    if a.witness:
+        return witness()
     if not a.parent:
         ap.error("--parent DIR is required")
     import torch
@@ -280,7 +498,8 @@ def main():
     try:
         for j, (root, tag) in enumerate(((parent, "parent"), (HERE, "change"),
                                          (HERE, "change"), (parent, "parent"))):
-            runs.append(_run(["--child", root, tag, store],
+            runs.append(_run(["--child", root, tag, store]
+                             + (["--kernels-only"] if a.kernels_only else []),
                              os.path.join(a.out, f"{j}_{tag}.log")))
     finally:
         shutil.rmtree(store, ignore_errors=True)
@@ -291,11 +510,13 @@ def main():
             print(f"[summary] {tag}: device us/call "
                   + ", ".join(f"{k} {v:.2f}" for k, v in r["device_us"].items()
                               if v is not None)
-                  + f"; split 5 steps {r['profiled']}; step 1 gaps "
+                  + f"; bsr_spmm team7 {r['bsr_spmm']}; matvec probe "
+                  f"{json.dumps(r['probe'])}; team7 20 steps {r['team7']}; "
+                  f"split 5 steps {r['profiled']}; step 1 gaps "
                   f"{r['step1_gaps']}", flush=True)
     hp, hc = by["parent"][0]["hashes"], by["change"][0]["hashes"]
     for key in sorted(hp):
-        if key.startswith(("matvec", "split ")) and "dots" not in key \
+        if key.startswith(("matvec", "split ", "bsr")) and "dots" not in key \
                 and "==" not in key:
             print(f"[summary] {key}: parent {hp[key]} change {hc[key]} "
                   f"equal {hp[key] == hc[key]}", flush=True)

@@ -2,7 +2,10 @@
 the card: the whole-plane coded matvec, the split route's stencil and
 conductor-slab kernels, the field tier's field_a and field_u (float32
 and bfloat16 coefficients, float32 and bfloat16 state), and the
-block-sparse SpMM (float32 and float64).  Every test here needs a CUDA device and nvcc and skips without
+block-sparse SpMM (float32 and float64, each of its routes).  The coded
+kernels finish their dots inside the kernel: one launch per whole-plane
+apply_dots, two per split one, the same bits on every call and on two
+streams at once.  Every test here needs a CUDA device and nvcc and skips without
 them.  The file imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -41,6 +44,7 @@ from eddy_currents_3d_tpu_torch.ops.field import (FieldStencilOperator,
 from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
 from eddy_currents_3d_tpu_torch.ops.bsr_cuda import (bsr_matvec, bsr_spmm,
                                                      bsr_spmm_reference)
+from eddy_currents_3d_tpu_torch.ops.coded_cuda import whole_plan
 from eddy_currents_3d_tpu_torch.ops.sparse import bsr_from_scipy
 from eddy_currents_3d_tpu_torch.testing import cases
 
@@ -166,6 +170,87 @@ def test_apply_div_matches_plain(cuda, name):
     d = coded_matvec(op, x.A)
     r = _ref(op, x.A, None)[1]
     _close(d, r, max(r.abs().max().item(), 1.0))
+
+
+def _device_kernels(fn):
+    """{device kernel: launches} of one call of ``fn`` after a warm-up,
+    counted by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def test_apply_dots_is_one_launch(cuda):
+    """apply_dots on the whole-plane route: the kernel and no other device
+    work (the dots are finished in the kernel)."""
+    op, x, w = _setup("static", cuda)
+    assert not op.split
+    kernels = _device_kernels(lambda: op.apply_dots(x, w))
+    assert sum(kernels.values()) == 1, kernels
+    assert any("whole_march" in k for k in kernels)
+    _, pw, py = op.apply_dots(x, w)
+    assert pw.data_ptr() + 4 == py.data_ptr()      # views of one tensor
+
+
+def test_whole_dots_repeat_across_operators(cuda):
+    """100 whole-plane apply_dots back to back, alternating between two
+    operators: each operator's dots keep their bits (the counter
+    resets)."""
+    pairs = [_setup(name, cuda, seed) for name, seed in (("static", 0),
+                                                        ("convection", 1))]
+    first = [torch.stack(coded_matvec(op, x.A, x.U, w)[2:])
+             for op, x, w in pairs]
+    got = [[] for _ in pairs]
+    for _ in range(50):
+        for j, (op, x, w) in enumerate(pairs):
+            got[j].append(torch.stack(coded_matvec(op, x.A, x.U, w)[2:]))
+    for ref, runs in zip(first, got):
+        assert all(torch.equal(r, ref) for r in runs)
+
+
+@pytest.mark.parametrize("route", ["whole", "split"])
+def test_dots_on_two_streams_at_once(cuda, route, monkeypatch):
+    """One operator's apply_dots on two streams at once: each stream keeps
+    its own partials and counter, so every call's dots are those of a
+    one-stream run, bit for bit."""
+    if route == "split":
+        monkeypatch.setattr(coded, "_WHOLE_PLANE_BUDGET", 0)
+    op, x, w = _setup("static", cuda)
+    assert op.split == (route == "split")
+    xs, ws = op.pad_state(x), op.pad_state(w)
+    ref = torch.stack(op.apply_dots(xs, ws)[1:])
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = {j: [] for j in range(2)}
+    for _ in range(50):
+        for j, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[j].append(torch.stack(op.apply_dots(xs, ws)[1:]))
+    torch.cuda.synchronize()
+    for runs in got.values():
+        assert all(torch.equal(r, ref) for r in runs)
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_whole_route_equals_split_pair(cuda, name):
+    """The whole-plane kernel (conducting runs decoded, the others
+    stencil only) and the split pair give the same yA and yU, bit for bit,
+    on every plan shape of the card cases."""
+    op, x, _ = _setup(name, cuda)
+    zb0, zb1 = op.cond_z
+    flags = [c for _, _, c in whole_plan(op.shape_zyx, op.cond_z).runs]
+    assert flags == sorted(flags, reverse=True)     # conducting runs first
+    yA, yU = coded_matvec(op, x.A, x.U)
+    sA = coded_stencil(op, x.A)
+    sU = coded_slab(op, x.A, x.U[zb0:zb1], sA)
+    assert torch.equal(yA, sA) and torch.equal(yU[zb0:zb1], sU)
+    assert not torch.any(yU[:zb0]) and not torch.any(yU[zb1:])
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -733,8 +818,39 @@ def test_bsr_spmm_matches_plain(cuda, block_shape, k, dtype):
     assert torch.equal(bsr_spmm(b, x), y)           # repeats bit for bit
     R, C = block_shape
     pow2 = C & (C - 1) == 0
-    assert bsr_spmm.route(block_shape, k) == (
-        "warp" if k < 32 and pow2 else "lanes")
+    vec = k == 1 and block_shape != (3, 12) and not (
+        dtype == torch.float64 and block_shape == (8, 16))
+    assert bsr_spmm.route(block_shape, k, dtype) == (
+        "vec" if vec else "warp" if k < 32 and pow2 else "lanes")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("block_shape", [(8, 8), (4, 8)],
+                         ids=lambda b: f"{b[0]}x{b[1]}")
+def test_bsr_spmm_vector_and_scalar_paths(cuda, block_shape, dtype):
+    """k = 1: 16-byte aligned operands take the vec route, an x that is
+    not 16-byte aligned the scalar warp route; both match the plain
+    version and repeat bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = _rand_bsr(block_shape, dtype, cuda, seed=3)
+    m = b.shape[1]
+    vals = torch.from_numpy(np.random.default_rng(4).standard_normal(m))
+    aligned = vals.to(cuda, dtype)[:, None]
+    buf = torch.zeros(m + 1, dtype=dtype, device=cuda)
+    buf[1:] = vals.to(cuda, dtype)
+    shifted = buf[1:][:, None]                      # 4 or 8 bytes off
+    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 != 0
+    ref = bsr_spmm_reference(b, aligned)
+    for x, route in ((aligned, "vec"), (shifted, "warp")):
+        assert bsr_spmm.route(block_shape, 1, dtype,
+                              x.data_ptr() % 16 == 0) == route
+        n0 = bsr_spmm.launches
+        y = bsr_spmm(b, x)
+        torch.cuda.synchronize()
+        assert bsr_spmm.launches == n0 + 1
+        _spmm_close(b, aligned, y, ref)
+        assert torch.equal(bsr_spmm(b, x), y)
 
 
 def test_bsr_matvec_runs_the_kernel_at_k1(cuda):
