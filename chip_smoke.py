@@ -103,30 +103,39 @@ Phases, each printed before the last line:
    versions; then 3 ilu0 steps on the card, each from the float64 CPU ilu0
    state, within 4 tol scale;
 15b. bfloat16 state: field_a and field_u at bfloat16 state and bfloat16
-   coefficients (their bfloat16-state instantiations) against their plain
-   versions on phase 9's grids, bit for bit (both sum in float32 in one
-   order with no FMA and round once), with the same times and bytes as
-   phase 9; team7 at bfloat16 state, 20 steps unpreconditioned with VTK at
+   coefficients against their plain versions on phase 9's grids and an
+   odd one (101x101x24), bit for bit (both sum in float32 in one order
+   with no FMA and round once), with the same times and bytes as phase 9,
+   on each bfloat16-state route: the paired kernels (two cells a thread;
+   the route pair_route chooses on phase 9's grids) and the scalar ones
+   (asked for by name there, chosen on the odd grid), each launch counted
+   on its route, and the two routes' outputs equal bit for bit; the
+   pair's library yardstick at team7 (its CSR at bfloat16 @ x, with its
+   largest difference from the pair's output, or torch's refusal); team7
+   at bfloat16 state, 20 steps unpreconditioned with VTK at
    dot_dtype=float32 and 20 at dot_dtype=None, then 5 steps each of
    jacobi, cheb_jacobi (order 8), mg and ilu0 (dot_dtype=float32): every
    step converges, the state stays bfloat16, A is finite, field_a
    launches at least 2 x the iterations, every field launch is a
-   bfloat16-state one and no coded kernel launches; the free bfloat16 run
+   bfloat16-state one counted on one route (the 20-step float32-dot run
+   all on the paired route) and no coded kernel launches; the free bfloat16 run
    after steps 1-3 against the float64 CPU run, within 16 tol scale after
    step 1; 256x256x64 at bfloat16 state against the float32 field route,
    3 steps each in turns (bf16, f32, f32, bf16), A finite, convergence
-   reported; one step each of those and of bfloat16 with dot_dtype=None
+   reported, the bf16 field launches all on the paired route; one step each of those and of bfloat16 with dot_dtype=None
    profiled, with the six kernels that take the most device time;
 16. device µs per call (torch.profiler) of the kernels other than
    bsr_spmm at the shapes of their records (field_a and field_u at float32
-   and at bfloat16 state), and each kernel's summary: events, device
+   and at bfloat16 state, on both bfloat16-state routes, at team7 and at
+   256x256x64), and each kernel's summary: events, device
    time, bound, plain version and main-path launches; the library time of
    the split pair's function at 256x256x64 (its exported CSR @ x, with the
    export's host seconds); for coded_matvec at team7 and the split pair
    at 256x256x64 also the plan (tile, ring depth, runs of planes, CTAs),
    each kernel's ptxas registers, spills and static shared memory from
    the build log, its dynamic shared memory and resident CTAs per SM, and
-   the device launches per apply_dots (phases 3 and 4).
+   the device launches per apply_dots (phases 3 and 4); the same
+   resources of every field kernel.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is the card's name and power limit; the one before it the kernels' JSON
@@ -134,7 +143,9 @@ record, each kernel's launches counted over the main path it serves
 (phase 5 for coded_matvec, phase 7's first split run for the split pair,
 phase 10's use_coded=False run for field_a and field_u, phase 14's BSR
 solve for bsr_spmm, phase 15b's 20-step dot_dtype=float32 run for the
-bfloat16-state field_a_bf16 and field_u_bf16), with its bound (bytes over
+bfloat16-state field_a_bf16 and field_u_bf16, whose records also carry
+the route the run took, "kernel_route", and its launches on each route,
+"launches_by_route"), with its bound (bytes over
 3.35 TB/s or operations over 67 TFLOP/s FP32, the larger) and the library
 call's time where one PyTorch call computes the same function; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
@@ -172,6 +183,7 @@ BF16_TOL = 0.0
 F32_FIELD_ITERS = [50, 43, 30, 28, 20, 20, 20, 7, 8, 14, 21, 28, 29, 10, 14,
                    15, 28, 9, 10, 15]
 BF16_GAP = 16.0    # bf16 team7 step 1 vs the f64 CPU step 1, tol scale
+FIELD_ROUTES = ("paired", "scalar")   # the bfloat16-state field kernels
 KERNELS = {        # name: (source, TPU kernel it replaces)
     "coded_matvec": ("eddy_currents_3d_tpu_torch/csrc/coded_matvec.cu",
                      "eddy_currents_3d_tpu/ops/pallas_coded.py:405"),
@@ -298,11 +310,16 @@ def wrappers():
 
 
 def counters():
-    """{kernel name: its launch count's holder}: the wrappers, and the
-    field wrappers' counts of their bfloat16-state launches."""
+    """{kernel name: its launch count's holder}: the wrappers, the field
+    wrappers' counts of their bfloat16-state launches, and of those on
+    each bfloat16-state route (paired, scalar)."""
     ws = wrappers()
-    return dict(ws, field_a_bf16=ws["field_a"].bf16_state,
-                field_u_bf16=ws["field_u"].bf16_state)
+    out = dict(ws, field_a_bf16=ws["field_a"].bf16_state,
+               field_u_bf16=ws["field_u"].bf16_state)
+    for k in ("field_a", "field_u"):
+        for route in FIELD_ROUTES:
+            out[f"{k}_{route}"] = getattr(ws[k], route)
+    return out
 
 
 def counted(fn):
@@ -789,26 +806,42 @@ def _field_op(sysm, coef):
     return FieldStencilOperator.from_assembled(sysm)
 
 
-def _field_recs(op, x, cells):
+def _on_route(w, route, fn):
+    """fn(), which must launch wrapper ``w``'s kernel once on ``route`` (at
+    bfloat16 state; None: any float32-state launch)."""
+    before = (w.launches, w.paired.launches, w.scalar.launches)
+    out = fn()
+    step = {None: (1, 0, 0), "paired": (1, 1, 0), "scalar": (1, 0, 1)}[route]
+    after = (w.launches, w.paired.launches, w.scalar.launches)
+    if after != tuple(a + s for a, s in zip(before, step)):
+        raise AssertionError(f"{type(w).__name__} launches (all, paired, "
+                             f"scalar) went {before} -> {after}, not one on "
+                             f"the {route} route")
+    return out
+
+
+def _field_recs(op, x, cells, route=None):
     """field_a (and field_u where ``op`` has a box) on the card against
     their plain versions on the same inputs: {kernel: record} with the
     error relative to the output scale, bytes per call and the times per
-    call of kernel (CUDA events, 50 calls) and plain version."""
+    call of kernel (CUDA events, 50 calls) and plain version.  ``route``:
+    the bfloat16-state route each launch takes (checked by the counts)."""
     from eddy_currents_3d_tpu_torch.ops.field import (field_a_reference,
                                                       field_u_reference)
     from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
 
     cs, ss = op.ka.element_size(), x.A.element_size()
+    kw = {} if route is None else {"route": route}
     recs = {}
     # ---- field_a over the grid, the three A components ----
     ra = field_a_reference(op.ka, x.A)
     scale = ra.abs().max().item()
-    ya = field_a(op.ka, x.A)
+    ya = _on_route(field_a, route, lambda: field_a(op.ka, x.A, **kw))
     err = _maxabs(ya, ra)
     recs["field_a"] = {
         "err": err / scale, "max_abs_err": err,
         "bytes": cells * (7 * cs + 2 * 3 * ss),
-        "times": (cuda_ms(lambda: field_a(op.ka, x.A), 50),
+        "times": (cuda_ms(lambda: field_a(op.ka, x.A, **kw), 50),
                   cuda_ms(lambda: field_a_reference(op.ka, x.A), 4))}
     if op.box is not None:
         # ---- field_u over the box, adding into yA ----
@@ -820,7 +853,7 @@ def _field_recs(op, x, cells):
         rU = torch.zeros_like(x.U)
         rU[sl] = uout
         yA = ya.clone()
-        yU = field_u(op, x.A, x.U, yA)
+        yU = _on_route(field_u, route, lambda: field_u(op, x.A, x.U, yA, **kw))
         uscale = max(rU.abs().max().item(), scale)
         err = max(_maxabs(yA, rA), _maxabs(yU, rU))
         nbox = (z1 - z0) * (y1 - y0) * (x1 - x0)
@@ -832,7 +865,7 @@ def _field_recs(op, x, cells):
             # yA read and written, yU written (the wrapper's zero fill of
             # the rest of yU is a separate fill, not the kernel's)
             "bytes": nbox * (31 * cs + 11 * ss),
-            "times": (cuda_ms(lambda: field_u(op, x.A, x.U, buf), 50),
+            "times": (cuda_ms(lambda: field_u(op, x.A, x.U, buf, **kw), 50),
                       cuda_ms(lambda: field_u_reference(
                           op.gu, op.ku, op.da, op.box, x.A, x.U), 4))}
     torch.cuda.synchronize()
@@ -1290,22 +1323,96 @@ def phase_ilu0(model, dev):
         raise AssertionError(f"ilu0 f32 vs f64 out of bounds: {step_ratios}")
 
 
+def _bf16_state(x):
+    from eddy_currents_3d_tpu_torch.assembly.stencil import State
+    return State(x.A.to(torch.bfloat16), x.U.to(torch.bfloat16))
+
+
 def phase_bf16_kernels(grids, dev):
     """[15b] field_a and field_u at bfloat16 state and bfloat16
-    coefficients against their plain versions, on phase 9's grids.
-    Returns {grid name: {kernel: record}}."""
-    from eddy_currents_3d_tpu_torch.assembly.stencil import State
+    coefficients against their plain versions, on phase 9's grids and an
+    odd one (101x101x24), on each route that applies: the route pair_route
+    chooses must be the paired one on phase 9's grids and the scalar one on
+    the odd grid, and on an even grid the scalar kernels, asked for by
+    name, must give the paired route's bits.  Returns {(grid name, route):
+    {kernel: record}}."""
+    from eddy_currents_3d_tpu_torch.assembly.assemble import assemble_operator
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import (field_a, field_u,
+                                                           pair_route)
+    from eddy_currents_3d_tpu_torch.testing.cases import case_static, load_case
 
+    odd = load_case(case_static(shape_xyz=(101, 101, 24), steps=3))
+    grids = list(grids) + [("odd", odd, assemble_operator(odd, torch.float32,
+                                                          dev))]
     out = {}
     for name, model, sysm in grids:
         nz, ny, nx = model.shape_zyx
         x, _ = _inputs(model, dev, 2)
-        xb = State(x.A.to(torch.bfloat16), x.U.to(torch.bfloat16))
-        recs = _field_recs(_field_op(sysm, torch.bfloat16), xb, nz * ny * nx)
-        _say_field_recs("15b", recs, f"{name} ({nx}x{ny}x{nz}, bf16 state "
-                        f"and coefficients)", BF16_TOL)
-        out[name] = recs
+        xb = _bf16_state(x)
+        op = _field_op(sysm, torch.bfloat16)
+        chosen = pair_route(model.shape_zyx, op.box)
+        if chosen != ("scalar" if name == "odd" else "paired"):
+            raise AssertionError(f"{name}: pair_route chose {chosen}")
+        # the route chosen is the one launched
+        ya = _on_route(field_a, chosen, lambda: field_a(op.ka, xb.A))
+        if op.box is not None:
+            _on_route(field_u, chosen, lambda: field_u(op, xb.A, xb.U, ya))
+        outs = {}
+        for route in FIELD_ROUTES if chosen == "paired" else ("scalar",):
+            recs = _field_recs(op, xb, nz * ny * nx, route)
+            _say_field_recs("15b", recs, f"{name} ({nx}x{ny}x{nz}, bf16 "
+                            f"state and coefficients, {route} route)",
+                            BF16_TOL)
+            out[(name, route)] = recs
+            outs[route] = _field_outputs(op, xb, route)
+        if len(outs) == 2 and not all(torch.equal(p, s) for p, s in zip(
+                outs["paired"], outs["scalar"])):
+            raise AssertionError(f"{name}: the paired route's outputs differ "
+                                 f"from the scalar route's")
     return out
+
+
+def _field_outputs(op, x, route):
+    """(field_a's y, field_u's yA and yU) of one apply on ``route``."""
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+
+    ya = field_a(op.ka, x.A, route=route)
+    if op.box is None:
+        return (ya,)
+    yA = ya.clone()
+    return ya, yA, field_u(op, x.A, x.U, yA, route=route)
+
+
+def csr_bf16_library(model, sysm, csr, dev):
+    """The library yardstick of the bfloat16-state field pair at team7: the
+    exported CSR (to_csr) as torch.sparse_csr_tensor(...).to(bfloat16) @ x,
+    x the pair's bfloat16 input in the reference's [Ax|Ay|Az|U] layout.
+    Returns (ms per call or None, text): the time and the largest
+    difference from the pair's output, or torch's refusal in its own words.
+    The port never calls it."""
+    f = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+    x, _ = _inputs(model, dev, 2)
+    xb = _bf16_state(x)
+    op = _field_op(sysm, torch.bfloat16)
+    cells = _u_cells(model, dev)
+    flat = lambda A, U: torch.cat([A.reshape(-1), U.reshape(-1)[cells]])
+    y = op.apply(xb)
+    want = flat(y.A, y.U).double()
+    try:
+        S = torch.sparse_csr_tensor(f(csr.indptr, torch.int64),
+                                    f(csr.indices, torch.int64),
+                                    f(csr.data, torch.float32),
+                                    size=csr.shape).to(torch.bfloat16)
+        v = flat(xb.A, xb.U)[:, None]
+        got = (S @ v)[:, 0]
+        torch.cuda.synchronize()
+        err = (got.double() - want).abs().max().item()
+        ms = cuda_ms(lambda: S @ v, 20)
+    except Exception as e:  # the yardstick only: report, do not fail
+        return None, f"refused: {type(e).__name__}: {e}"
+    scale = want.abs().max().item()
+    return ms, (f"{ms * 1e3:.2f} us, |library - pair| <= {err:.4g} "
+                f"({err / scale:.2e} of the pair's output scale {scale:.4g})")
 
 
 def _bf16_run(sim, label, **run_kw):
@@ -1318,6 +1425,10 @@ def _bf16_run(sim, label, **run_kw):
             counts["field_a"], counts["field_u"]):
         raise AssertionError(f"{label}: field launches not all at bfloat16 "
                              f"state: {counts}")
+    for k in ("field_a", "field_u"):
+        if sum(counts[f"{k}_{r}"] for r in FIELD_ROUTES) != counts[k]:
+            raise AssertionError(f"{label}: {k}'s launches not each counted "
+                                 f"on one route: {counts}")
     return st, diag, counts
 
 
@@ -1336,6 +1447,10 @@ def phase_bf16_team7(model, dev):
     with tempfile.TemporaryDirectory() as tmp:
         st, diag, counts = _bf16_run(main, "team7 bf16 dot_dtype=float32",
                                      output_dir=tmp)
+        if (counts["field_a_paired"], counts["field_u_paired"]) != (
+                counts["field_a"], counts["field_u"]):
+            raise AssertionError(f"team7 bf16: field launches not all on "
+                                 f"the paired route: {counts}")
         outs = [o for _, o in main.steps if o is not None]
         missing = [f"{k}_{n}.vtk" for n in outs for k in ("field", "src")
                    if not os.path.isfile(os.path.join(tmp, f"{k}_{n}.vtk"))]
@@ -1397,7 +1512,10 @@ def phase_bf16_scale(rec, dev):
         if not torch.isfinite(st.A.float()).all():
             raise AssertionError(f"256x256x64 {name}: non-finite A")
         if counts["field_a"] == 0 or counts["field_a_bf16"] != (
-                counts["field_a"] if name == "bf16" else 0):
+                counts["field_a"] if name == "bf16" else 0) or (
+                counts["field_a_paired"], counts["field_u_paired"]) != (
+                (counts["field_a"], counts["field_u"]) if name == "bf16"
+                else (0, 0)):
             raise AssertionError(f"256x256x64 {name} launched {counts}")
         wall = diag["wall_s"]
         say(f"[15b] 256x256x64 {name} field route x 3 steps: iterations "
@@ -1448,20 +1566,46 @@ def phase_device_times(recs, dev):
                                      "stencil_march")
     out["coded_slab"] = device_ms(
         lambda: coded_slab(sop, xs.A, Uc, buf, wc), "slab_march")
-    fop = _field_op(t7["system"], torch.float32)
-    yb = field_a(fop.ka, x.A)
-    out["field_a"] = device_ms(lambda: field_a(fop.ka, x.A), "field_a")
-    out["field_u"] = device_ms(lambda: field_u(fop, x.A, x.U, yb), "field_u")
-    bop = _field_op(t7["system"], torch.bfloat16)
-    xb = State(x.A.to(torch.bfloat16), x.U.to(torch.bfloat16))
-    ybb = field_a(bop.ka, xb.A)
-    out["field_a_bf16"] = device_ms(lambda: field_a(bop.ka, xb.A), "field_a")
-    out["field_u_bf16"] = device_ms(lambda: field_u(bop, xb.A, xb.U, ybb),
-                                    "field_u")
-    say("[16] device us per call (torch.profiler, 20 calls): " + ", ".join(
-        f"{k} {'not measured' if v is None else f'{v * 1e3:.2f}'}"
-        for k, v in out.items()))
+    # the field pair at team7 (the records' shape) and at scale256, at
+    # float32 and at bfloat16 state (the route pair_route chooses, the
+    # paired one, and the scalar one asked for by name)
+    for grid, (rec, xg) in (("", (t7, x)), (" scale256", (s, xs))):
+        fop = _field_op(rec["system"], torch.float32)
+        yb = field_a(fop.ka, xg.A)
+        out["field_a" + grid] = device_ms(lambda: field_a(fop.ka, xg.A),
+                                          "field_a")
+        out["field_u" + grid] = device_ms(
+            lambda: field_u(fop, xg.A, xg.U, yb), "field_u")
+        bop = _field_op(rec["system"], torch.bfloat16)
+        xb = _bf16_state(xg)
+        ybb = field_a(bop.ka, xb.A)
+        for route, tag in ((None, ""), ("scalar", " scalar")):
+            out["field_a_bf16" + tag + grid] = device_ms(
+                lambda: field_a(bop.ka, xb.A, route=route), "field_a")
+            out["field_u_bf16" + tag + grid] = device_ms(
+                lambda: field_u(bop, xb.A, xb.U, ybb, route=route), "field_u")
+    say("[16] device us per call (torch.profiler, 20 calls; field kernels "
+        "at team7, and at scale256 where named; bf16 on the paired route "
+        "unless scalar is named): " + ", ".join(
+            f"{k} {'not measured' if v is None else f'{v * 1e3:.2f}'}"
+            for k, v in out.items()))
     return out
+
+
+def phase_field_details(logs, dev):
+    """The field kernels' resources: ptxas registers and spills from the
+    build log, and registers and resident CTAs per SM at the threads a CTA
+    each launches with."""
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import (KERNEL_NAMES,
+                                                           field_a)
+
+    log = logs.get("field_stencil", "")
+    for kernel, pattern in KERNEL_NAMES.items():
+        info = field_a.info(kernel, dev)
+        say(f"[16] {kernel}: ptxas {_ptxas(log, pattern)}; runtime "
+            f"{info['registers']} registers, {info['ctas_per_sm']} CTAs of "
+            f"{info['threads']} threads per SM, {info['local_bytes']} B "
+            f"local per thread")
 
 
 def _ptxas(log, pattern):
@@ -1572,11 +1716,17 @@ def main() -> int:
     del B
     phase_ilu0(model, dev)
     bf16_recs = phase_bf16_kernels(field_grids, dev)
+    bf16_lib_ms, bf16_lib = csr_bf16_library(t7["model"], t7["system"], csr,
+                                             dev)
+    say(f"[15b] library yardstick of the bf16-state field pair at team7: "
+        f"its CSR as torch.sparse_csr_tensor(...).to(torch.bfloat16) @ x "
+        f"{bf16_lib}")
     bf16_counts = phase_bf16_team7(model, dev)
     phase_bf16_scale(recs["scale256"], dev)
     dev_times = phase_device_times(recs, dev)
     phase_march_details(recs, logs,
                         split_recs["scale256"]["launches_per_apply_dots"], dev)
+    phase_field_details(logs, dev)
     dev_times["bsr_spmm"] = bsr_recs[1]["device_ms"]
     s256 = recs["scale256"]
     csr256_ms, t_csr256 = csr_library_ms(s256["model"], s256["system"], dev)
@@ -1594,7 +1744,7 @@ def main() -> int:
     slab = (zb1 - zb0) * ny * nx
     own = nz * ny * nx - slab
     f7 = field_recs[("team7", "f32")]
-    b7 = bf16_recs["team7"]
+    b7 = bf16_recs[("team7", "paired")]
     box7 = t7["system"].op.box
     nbox7 = (box7[1] - box7[0]) * (box7[3] - box7[2]) * (box7[5] - box7[4])
     zc0, zc1 = t7["op"].cond_z
@@ -1616,13 +1766,14 @@ def main() -> int:
         "field_u_bf16": bound(b7["field_u"]["bytes"], 2 * 31 * nbox7),
     }
 
-    def record(name, launches, rec, mode=None, library_ms=None):
+    def record(name, launches, rec, mode=None, library_ms=None, **extra):
         t = rec["times"] if mode is None else rec["times"][mode]
         b_ms, b_by = rec["bound"] if "bound" in rec else bounds[name]
         return {"name": name, "route": "cuda", "source": KERNELS[name][0],
                 "replaces": KERNELS[name][1], "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": t[0], "plain_ms": t[1],
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                **extra}
 
     # the coded and field operators' library call is their exported CSR
     # @ x (csr_library_ms): for the split pair and the field pair, it
@@ -1643,12 +1794,18 @@ def main() -> int:
                               library_ms=bsr_recs["csr_ms"]))
     kernels.append(record("bsr_spmm", bsr_launches, bsr_recs[1],
                           library_ms=bsr_recs[1]["library_ms"]))
+    # the bfloat16-state pair: the paired route's record (the one the main
+    # path takes), the largest error over both routes and every grid, the
+    # launches on each route, and the pair's bfloat16 CSR yardstick
     for name in ("field_a", "field_u"):
         rec = dict(b7[name])
         rec["max_abs_err"] = max(r[name]["max_abs_err"]
                                  for r in bf16_recs.values() if name in r)
-        kernels.append(record(f"{name}_bf16", bf16_counts[f"{name}_bf16"],
-                              rec))
+        kernels.append(record(
+            f"{name}_bf16", bf16_counts[f"{name}_bf16"], rec,
+            library_ms=bf16_lib_ms, kernel_route="paired",
+            launches_by_route={r: bf16_counts[f"{name}_{r}"]
+                               for r in FIELD_ROUTES}))
     for k in kernels:
         d = dev_times[k["name"]]
         say(f"[16] {k['name']}: events {k['ms'] * 1e3:.2f} us, device "

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The coded kernels (coded_matvec, coded_stencil, coded_slab) and
-bsr_spmm on one CUDA card: another checkout's build against this tree's.
+"""The coded kernels (coded_matvec, coded_stencil, coded_slab), bsr_spmm
+and the field pair (field_a, field_u) on one CUDA card: another
+checkout's build against this tree's.
 
     python3 split_bench.py --parent DIR [--out OUT] [--kernels-only]
     python3 split_bench.py --probe
@@ -17,14 +18,25 @@ its times at team7), 14 (the matrix-form solve) and 16 (device µs per
 call, coded_slab's among them); then
 
 * the whole-plane matvec probe (``--probe``, below);
+* the field pair's device µs per call at team7 and scale256, at float32
+  state (float32 and bfloat16 coefficients) and at bfloat16 state (on
+  each route the build has), and each field kernel's registers, spills
+  and resident CTAs per SM;
+* team7 at bfloat16 state, dot_dtype float32, 20 steps without VTK after
+  2 steps of warm-up: iterations per step (they follow the field kernels'
+  bits) and ms per iteration, and each field wrapper's µs per call between
+  CUDA events at team7's bfloat16 state (the host's work included);
 * profiles 20 team7 main-path steps (ms/iteration, device µs/iteration,
   busy share, device launches per iteration) and 5 split steps at
   256x256x64 (device µs per iteration, busy share);
 * hashes, on inputs made from fixed seeds, the outputs yA and yU of
   coded_matvec (team7, convection, scale256: apply, apply_dots,
   apply_div; its dots apart), of the split pair (scale256 and convection:
-  apply, apply_dots, apply_div) and of bsr_spmm on team7's exported
-  operator at k = 1 and k = 128;
+  apply, apply_dots, apply_div), of bsr_spmm on team7's exported
+  operator at k = 1 and k = 128, and of the field pair (field_a's output,
+  field_u's yA and yU) on team7, convection and scale256 at each state,
+  with, where the build has routes, whether the bfloat16-state scalar
+  route gives the chosen route's bits;
 * takes step 1 of 256x256x64 on both routes, each with its kernels'
   fused dots and with float64 sums of the same products in their place,
   against the port's float64 step 1 on the CPU (computed by the first
@@ -50,6 +62,7 @@ summary is printed.  Without a CUDA device the script exits 1.
 """
 
 import argparse
+import ast
 import hashlib
 import importlib.util
 import json
@@ -75,9 +88,13 @@ def _load_smoke(root):
 
 
 def _digest(*tensors):
+    import torch
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        t = t.detach().contiguous().cpu()
+        if t.dtype == torch.bfloat16:        # numpy has no bfloat16
+            t = t.view(torch.int16)
+        h.update(t.numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -288,6 +305,145 @@ def _step1_gaps(rec, dev, store):
     return out
 
 
+FIELD_STATES = {   # (coefficient dtype, state dtype) by name
+    "f32": ("float32", "float32"), "bf16 coef": ("bfloat16", "float32"),
+    "bf16": ("bfloat16", "bfloat16")}
+
+
+def _field_op_state(cs, rec, state, dev, seed):
+    """The field operator of ``rec`` and inputs from ``seed`` at ``state``
+    (a key of FIELD_STATES)."""
+    import torch
+
+    from eddy_currents_3d_tpu_torch.assembly.stencil import State
+
+    coef, sd = (getattr(torch, n) for n in FIELD_STATES[state])
+    op = cs._field_op(rec["system"], coef)
+    x, _ = cs._inputs(rec["model"], dev, seed)
+    return op, State(x.A.to(sd), x.U.to(sd))
+
+
+def _routes(field_a):
+    """The bfloat16-state routes a build's field wrapper can be asked for
+    by name: none in a build before the paired route."""
+    return ("paired", "scalar") if hasattr(field_a, "paired") else ()
+
+
+def _field_hashes(cs, recs, dev):
+    """Hashes of field_a's output and field_u's yA and yU on team7,
+    convection and scale256, at each state of FIELD_STATES, on inputs from
+    a fixed seed; where the build has routes, whether the scalar route's
+    outputs equal the chosen route's at bfloat16 state."""
+    import torch
+
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+
+    def outputs(op, x, **kw):
+        ya = field_a(op.ka, x.A, **kw)
+        yA = ya.clone()
+        return ya, yA, field_u(op, x.A, x.U, yA, **kw)
+
+    out = {}
+    for name, rec in recs.items():
+        for state in FIELD_STATES:
+            op, x = _field_op_state(cs, rec, state, dev, 11)
+            ys = outputs(op, x)
+            out[f"field {state} {name}"] = _digest(*ys)
+            if state == "bf16" and _routes(field_a):
+                other = outputs(op, x, route="scalar")
+                torch.cuda.synchronize()
+                out[f"field bf16 scalar == chosen {name}"] = all(
+                    torch.equal(a, b) for a, b in zip(ys, other))
+    return out
+
+
+def _field_times(cs, recs, dev):
+    """Device µs per call (cs.device_ms, 20 calls) of field_a and field_u
+    at team7 and scale256 at each state of FIELD_STATES; at bfloat16
+    state on each route the build has (else as it launches)."""
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+
+    out = {}
+    for name in ("team7", "scale256"):
+        for state in FIELD_STATES:
+            op, x = _field_op_state(cs, recs[name], state, dev, 0)
+            yb = field_a(op.ka, x.A)
+            routes = _routes(field_a) if state == "bf16" else ()
+            for route in routes or (None,):
+                kw = {} if route is None else {"route": route}
+                tag = f"{state}{'' if route is None else ' ' + route} {name}"
+                for kname, fn in (
+                        ("field_a", lambda: field_a(op.ka, x.A, **kw)),
+                        ("field_u", lambda: field_u(op, x.A, x.U, yb, **kw))):
+                    ms = cs.device_ms(fn, kname)
+                    out[f"{kname} {tag}"] = None if ms is None else ms * 1e3
+    return out
+
+
+def _field_kernel_names():
+    """This tree's ``ops/field_cuda.py`` KERNEL_NAMES (the field kernels'
+    names and a piece of each mangled name), read from the source, so
+    that either build's log is searched for the same kernels."""
+    path = os.path.join(HERE, "eddy_currents_3d_tpu_torch", "ops",
+                        "field_cuda.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and \
+                getattr(node.targets[0], "id", None) == "KERNEL_NAMES":
+            return ast.literal_eval(node.value)
+    raise LookupError(f"no KERNEL_NAMES in {path}")
+
+
+def _field_resources(cs, log, dev):
+    """Each field kernel of the build: its ptxas line, registers and
+    resident CTAs per SM (the runtime's where the build reports them, else
+    the occupancy rule for 256 threads from the ptxas registers)."""
+    from eddy_currents_3d_tpu_torch.ops import field_cuda
+
+    out = {}
+    for kernel, pattern in _field_kernel_names().items():
+        ptx = cs._ptxas(log, pattern)
+        if ptx == "not in the build log":
+            continue
+        rec = {"ptxas": ptx}
+        if hasattr(field_cuda, "KERNEL_NAMES"):
+            rec.update(field_cuda.field_a.info(kernel, dev))
+        else:
+            regs = _ptxas_regs(ptx)
+            rec["ctas_per_sm"] = min(8, 65536 // (-(-regs // 8) * 8 * 256))
+        out[kernel] = rec
+    return out
+
+
+def _bf16_team7(cs, dev):
+    """team7 at bfloat16 state, dot_dtype float32: 20 steps without VTK
+    after 2 of warm-up (iterations per step, which follow the field
+    kernels' outputs to the last bit, and ms per iteration), and each
+    field wrapper's µs per call between CUDA events (200 calls) on the
+    system's operator and the run's last state."""
+    import torch
+
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+    from eddy_currents_3d_tpu_torch.testing.cases import (case_static,
+                                                          load_case)
+
+    model = load_case(case_static(shape_xyz=(102, 102, 24), steps=20))
+    sim = Simulation(model, torch.bfloat16, torch.float32, device=dev)
+    sim.run(num_steps=2)
+    x, diag = sim.run()
+    op = sim.field_op
+    ya = field_a(op.ka, x.A)
+    return {"iterations": diag["iterations"],
+            "ms_per_iteration": diag["wall_s"] / diag["total_iterations"]
+            * 1e3,
+            "field_a_event_us": cs.cuda_ms(lambda: field_a(op.ka, x.A), 200)
+            * 1e3,
+            "field_u_event_us": cs.cuda_ms(
+                lambda: field_u(op, x.A, x.U, ya), 200) * 1e3}
+
+
 def _bsr_hashes(B, dev):
     """Hashes of bsr_spmm's outputs on B at k = 1 and k = 128."""
     import numpy as np
@@ -389,6 +545,12 @@ def child(root, tag, store, scale_runs=True):
     bsr_hashes = _bsr_hashes(B, dev)
     del B
     probe = _matvec_probe(cs, t7, dev, logs.get("coded_matvec", ""))
+    field_us = _field_times(cs, recs, dev)
+    field_res = _field_resources(cs, logs.get("field_stencil", ""), dev)
+    bf16 = _bf16_team7(cs, dev)
+    print(f"[split_bench {tag}] field device us/call: {json.dumps(field_us)}; "
+          f"resources {json.dumps(field_res)}; team7 bf16 20 steps "
+          f"{json.dumps(bf16)}", flush=True)
     team7 = _team7_profile(cs, dev)
     print(f"[split_bench {tag}] team7 x 20 steps profiled: {team7}",
           flush=True)
@@ -401,8 +563,10 @@ def child(root, tag, store, scale_runs=True):
                          for k, v in times.items()},
            "profiled": profiled,
            "step1_gaps": gaps, "bsr_spmm": bsr, "probe": probe,
-           "team7": team7,
-           "hashes": dict(_hashes(cs, recs, dev), **bsr_hashes)}
+           "team7": team7, "field_us": field_us,
+           "field_resources": field_res, "bf16_team7": bf16,
+           "hashes": dict(_hashes(cs, recs, dev), **bsr_hashes,
+                          **_field_hashes(cs, recs, dev))}
     print(TAG + json.dumps(res), flush=True)
     return 0
 
@@ -513,16 +677,26 @@ def main():
                   + f"; bsr_spmm team7 {r['bsr_spmm']}; matvec probe "
                   f"{json.dumps(r['probe'])}; team7 20 steps {r['team7']}; "
                   f"split 5 steps {r['profiled']}; step 1 gaps "
-                  f"{r['step1_gaps']}", flush=True)
+                  f"{r['step1_gaps']}; field device us/call "
+                  f"{json.dumps(r['field_us'])}; field resources "
+                  f"{json.dumps(r['field_resources'])}; team7 bf16 20 steps "
+                  f"{json.dumps(r['bf16_team7'])}", flush=True)
     hp, hc = by["parent"][0]["hashes"], by["change"][0]["hashes"]
-    for key in sorted(hp):
-        if key.startswith(("matvec", "split ", "bsr")) and "dots" not in key \
-                and "==" not in key:
-            print(f"[summary] {key}: parent {hp[key]} change {hc[key]} "
-                  f"equal {hp[key] == hc[key]}", flush=True)
+    for key in sorted(set(hp) | set(hc)):
+        p_, c_ = hp.get(key), hc.get(key)
+        if key.startswith(("matvec", "split ", "bsr", "field")) and \
+                "dots" not in key and "==" not in key:
+            print(f"[summary] {key}: parent {p_} change {c_} equal "
+                  f"{p_ == c_}", flush=True)
         else:
-            print(f"[summary] {key}: parent {hp[key]} change {hc[key]}",
-                  flush=True)
+            print(f"[summary] {key}: parent {p_} change {c_}", flush=True)
+    its = [r["bf16_team7"]["iterations"] for r in runs]
+    print(f"[summary] team7 bf16 iterations per step equal in every run: "
+          f"{all(i == its[0] for i in its)} ({its[0]})", flush=True)
+    for key in ("ms_per_iteration", "field_a_event_us", "field_u_event_us"):
+        print(f"[summary] team7 bf16 {key} in run order (parent, change, "
+              f"change, parent): " + ", ".join(
+                  f"{r['bf16_team7'][key]:.4f}" for r in runs), flush=True)
     repeat = all(r["hashes"] == by[r["tag"]][0]["hashes"] for r in runs)
     print(f"[summary] each build's hashes repeat across its two runs: "
           f"{repeat}", flush=True)

@@ -41,7 +41,8 @@ from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import (coded_slab,
 from eddy_currents_3d_tpu_torch.ops.field import (FieldStencilOperator,
                                                   field_a_reference,
                                                   field_u_reference)
-from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+from eddy_currents_3d_tpu_torch.ops.field_cuda import (aligned4, field_a,
+                                                       field_u, pair_route)
 from eddy_currents_3d_tpu_torch.ops.bsr_cuda import (bsr_matvec, bsr_spmm,
                                                      bsr_spmm_reference)
 from eddy_currents_3d_tpu_torch.ops.coded_cuda import whole_plan
@@ -564,24 +565,71 @@ def _equal_bf16(got, ref):
     assert torch.equal(got, ref), (err, ref.double().abs().max().item())
 
 
+# How a bfloat16-state test launches: "auto" as pair_route chooses (the
+# paired route where the width is even: static's box starts at x0 = 1,
+# convection's at 0); "scalar" forced onto the one-cell kernels, also on
+# the even grids; "unaligned" as chosen for a copy 2 bytes off a word
+# boundary, which takes the scalar route.
+BF16_ROUTES = ("auto", "scalar", "unaligned")
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a word."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert not aligned4(out)
+    return out
+
+
+def _route_counts(w):
+    return (w.launches, w.bf16_state.launches, w.paired.launches,
+            w.scalar.launches)
+
+
+def _stepped(w, before, route):
+    """The counts of wrapper ``w`` rose by one launch on ``route``."""
+    step = (1, 1, 1, 0) if route == "paired" else (1, 1, 0, 1)
+    assert _route_counts(w) == tuple(a + b for a, b in zip(before, step))
+
+
+def _expected_route(route, shape_zyx, box=None, fields=3):
+    if route != "auto":
+        return "scalar"
+    return pair_route(shape_zyx, box, True, fields)
+
+
+@pytest.mark.parametrize("fields", [3, 1])
+@pytest.mark.parametrize("route", BF16_ROUTES)
 @pytest.mark.parametrize("name", sorted(FIELD_CASES))
-def test_field_a_bf16_state_matches_plain(cuda, name):
+def test_field_a_bf16_state_matches_plain(cuda, name, route, fields):
     op, x = _field_setup(name, "bf16", cuda)
     xb = _bf16_state(x)
-    n0, b0 = field_a.launches, field_a.bf16_state.launches
-    y = field_a(op.ka, xb.A)
+    A = xb.A if fields == 3 else xb.A[1].contiguous()
+    if route == "unaligned":
+        A = _unaligned(A)
+    took = _expected_route(route, op.shape_zyx, fields=fields)
+    assert took == ("paired" if route == "auto" and op.shape_zyx[2] % 2 == 0
+                    else "scalar")
+    asked = "scalar" if route == "scalar" else None
+    n0 = _route_counts(field_a)
+    y = field_a(op.ka, A, route=asked)
     torch.cuda.synchronize()
-    assert (field_a.launches, field_a.bf16_state.launches) == (n0 + 1, b0 + 1)
-    r = field_a_reference(op.ka, xb.A)
+    _stepped(field_a, n0, took)
+    r = field_a_reference(op.ka, A)
     _equal_bf16(y, r)
-    assert torch.equal(field_a(op.ka, xb.A), y)        # repeats bit for bit
+    assert torch.equal(field_a(op.ka, A, route=asked), y)   # repeats
+    # the other route gives the same bits
+    assert torch.equal(field_a(op.ka, A, route="scalar"), y)
     # a float32 state launch is not counted as a bfloat16-state one
+    n1 = _route_counts(field_a)
     field_a(op.ka, x.A)
-    assert field_a.bf16_state.launches == b0 + 2
+    assert _route_counts(field_a) == (n1[0] + 1,) + n1[1:]
 
 
+@pytest.mark.parametrize("route", BF16_ROUTES)
 @pytest.mark.parametrize("name", sorted(FIELD_CASES))
-def test_field_u_bf16_state_matches_plain(cuda, name):
+def test_field_u_bf16_state_matches_plain(cuda, name, route):
     op, x = _field_setup(name, "bf16", cuda, seed=1)
     xb = _bf16_state(x)
     yA = field_a(op.ka, xb.A)
@@ -589,17 +637,27 @@ def test_field_u_bf16_state_matches_plain(cuda, name):
         with pytest.raises(ValueError, match="box"):
             field_u(op, xb.A, xb.U, yA)
         return
+    if route == "unaligned":
+        yA = _unaligned(yA)
+    took = _expected_route(route, op.shape_zyx, op.box)
+    assert took == ("paired" if route == "auto" and name != "odd"
+                    else "scalar")
+    asked = "scalar" if route == "scalar" else None
     rA = yA.clone()
-    n0, b0 = field_u.launches, field_u.bf16_state.launches
-    yU = field_u(op, xb.A, xb.U, yA)
+    yA_scalar = yA.clone()
+    n0 = _route_counts(field_u)
+    yU = field_u(op, xb.A, xb.U, yA, route=asked)
     torch.cuda.synchronize()
-    assert (field_u.launches, field_u.bf16_state.launches) == (n0 + 1, b0 + 1)
+    _stepped(field_u, n0, took)
     gout, uout = field_u_reference(op.gu, op.ku, op.da, op.box, xb.A, xb.U)
     rA[_box(op)] += gout                    # float32 terms, one rounding
     rU = torch.zeros_like(xb.U)
     rU[_box(op)[1:]] = uout
     _equal_bf16(yA, rA)
     _equal_bf16(yU, rU)
+    # the other route gives the same bits
+    assert torch.equal(field_u(op, xb.A, xb.U, yA_scalar, route="scalar"), yU)
+    assert torch.equal(yA_scalar, yA)
     # the whole apply against the same operator's plain apply on the CPU
     cpu = dataclasses.replace(op, **{f: getattr(op, f).cpu()
                                      for f in ("ka", "gu", "ku", "da")})
@@ -632,6 +690,17 @@ def test_field_wrappers_take_bf16_state_on_the_card(cuda, monkeypatch):
         field_u(op32, xb.A, xb.U, y)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         field_a(op.ka, x.A.half())
+    # the route: the paired one only where it applies, bfloat16 state only
+    with pytest.raises(ValueError, match="route must be"):
+        field_a(op.ka, xb.A, route="pairs")
+    with pytest.raises(ValueError, match="bfloat16 state only"):
+        field_a(op32.ka, x.A, route="scalar")
+    odd, xo = _field_setup("odd", "bf16", cuda)
+    xo = _bf16_state(xo)
+    with pytest.raises(ValueError, match="paired route needs"):
+        field_a(odd.ka, xo.A, route="paired")
+    with pytest.raises(ValueError, match="paired route needs"):
+        field_u(odd, xo.A, xo.U, field_a(odd.ka, xo.A), route="paired")
 
 
 BF16_RUNS = {
@@ -652,7 +721,8 @@ def test_bf16_simulation_runs_through_the_field_kernels(cuda, run):
     sim = Simulation(model, torch.bfloat16, device=cuda, **BF16_RUNS[run])
     assert sim.coded_op is None and sim.field_op.ka.dtype == torch.bfloat16
     ks = (field_a, field_u, coded_matvec, coded_stencil, coded_slab,
-          field_a.bf16_state, field_u.bf16_state)
+          field_a.bf16_state, field_u.bf16_state, field_a.paired,
+          field_u.paired, field_a.scalar, field_u.scalar)
     n = [k.launches for k in ks]
     st, diag = sim.run()
     d = [k.launches - n0 for k, n0 in zip(ks, n)]
@@ -661,7 +731,9 @@ def test_bf16_simulation_runs_through_the_field_kernels(cuda, run):
     assert torch.isfinite(st.A.float()).all()
     assert d[0] >= 2 * diag["total_iterations"] and d[1] > 0
     assert d[2:5] == [0, 0, 0]                        # no coded kernel
-    assert d[5:] == d[:2]                             # all at bf16 state
+    assert d[5:7] == d[:2]                            # all at bf16 state
+    # each counted on one route: 20 x 20 takes the paired one
+    assert [d[7] + d[9], d[8] + d[10]] == d[5:7] and d[7] > 0 and d[8] > 0
 
 
 def test_simulation_defaults_to_the_card(cuda):
