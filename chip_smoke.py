@@ -6,10 +6,10 @@
 Phases, each printed before the last line:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the kernels' five sources (csrc/coded_matvec.cu,
-   csrc/coded_split.cu, csrc/field_stencil.cu and csrc/bsr_spmm.cu with
-   nvcc, the host ILU(0) engine csrc/ilu0_host.cpp with g++), all at once,
-   and load them;
+2. build the native sources (csrc/coded_matvec.cu, csrc/coded_split.cu,
+   csrc/field_stencil.cu, csrc/bsr_spmm.cu and the solve's WHILE-node
+   graph csrc/solve_graph.cu with nvcc, the host ILU(0) engine
+   csrc/ilu0_host.cpp with g++), all at once, and load them;
 3. the whole-plane kernel (coded_matvec) against its plain torch version on
    the card, for apply, apply_dots and apply_div, on case_static
    102x102x24, a small case_convection and case_static 256x256x64, with the
@@ -30,9 +30,11 @@ Phases, each printed before the last line:
    kernel at most once a call and nothing else; a trace with no event of
    a kernel fails);
 5. the main path: Simulation(float32, device="cuda").run(output_dir=...)
-   over 20 steps of case_static 102x102x24; every step converges, A and
-   the carry are finite, the VTK files exist, and the whole-plane kernel's
-   launch count is at least 2 x the solver iterations;
+   over 20 steps of case_static 102x102x24, each solve one CUDA graph
+   (solvers/bicgstab.py DeviceLoop); every step converges, A and the
+   carry are finite, the VTK files exist, and the whole-plane kernel's
+   launch count is at least 2 x the solver iterations (the wrappers count
+   the launches each graph run made: utils/graph.py);
 6. the first 5 steps of the same case on the card at float32 against the
    port at float64 on the CPU (flat-roll operator): each float32 step taken
    from the float64 state within 4 tol scale; the free float32 run within
@@ -92,9 +94,12 @@ Phases, each printed before the last line:
    operator's apply within 3e-6 of max(|B|·|x|); BiCGSTABwr on
    bsr_matvec solves B x = b (b = B x_k in float64 on the host) from
    x_{k-1}, with the true residual, recomputed in float64 on the host,
-   below tol and bsr_spmm launched at least twice per iteration; then
-   bicgstab_ilu0 on the CSR on the card (the ELL sweep tier) converges
-   too; iterations, ms/iteration and the host setup seconds;
+   below tol and bsr_spmm launched at least twice per iteration; the
+   same solve replayed and on the per-iteration host loop, both equal to
+   it bit for bit, with ms/iteration of each and the capture's host
+   seconds; then bicgstab_ilu0 on the CSR on the card (the ELL sweep
+   tier) converges too; iterations, ms/iteration and the host setup
+   seconds;
 15. team7 with precond="ilu0", 20 steps on the coded route (full-shape U)
    and 20 with use_coded=False: every step converges, A is finite,
    field_a launches at least 8 x the iterations (two preconditioner
@@ -135,7 +140,25 @@ Phases, each printed before the last line:
    each kernel's ptxas registers, spills and static shared memory from
    the build log, its dynamic shared memory and resident CTAs per SM, and
    the device launches per apply_dots (phases 3 and 4); the same
-   resources of every field kernel.
+   resources of every field kernel;
+17. the solve as one device program (run after phase 8): in each of
+   GRAPH_CONFIGS (team7 coded with none, jacobi, cheb_jacobi order 8 and
+   ilu0; team7's field route and mg; team7 at bfloat16 state with
+   dot_dtype float32; 256x256x64 on the split route), 5 graphed steps
+   against 5 on the eager per-iteration loop (Simulation._step(eager=
+   True)), bit for bit at every step (iterations, relres, A, U), host
+   reads per solve within ceil((n + 1) / K) + 1, one capture per
+   Simulation and its host seconds, and ms/iteration of eager and graphed
+   runs in turns, each also profiled (device µs per iteration, busy
+   share), with each wrapper's counted launches in the profiled run held
+   against its kernels' events in the trace (every counted launch traced
+   but for the profiler's dropped events: at least TRACE_SHARE of them,
+   and no more events than launches); run_scan over team7's 20 steps with
+   VTK, its files equal run's byte for byte, a run_scan that makes no
+   synchronizing call (torch.cuda.set_sync_debug_mode("error"); the
+   solves' reads wait on an event, which it does not flag), and a run
+   resumed from the checkpoint at step 10 equal to the uninterrupted one
+   bit for bit.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is the card's name and power limit; the one before it the kernels' JSON
@@ -168,7 +191,7 @@ import torch
 ATOL = 3e-6        # matvec: x output scale (tests/test_torch_coded.py)
 DOT_RTOL = 2e-5    # fused dots, relative to float64 sums
 SOURCES = ("coded_matvec", "coded_split", "field_stencil", "bsr_spmm",
-           "ilu0_host")
+           "solve_graph", "ilu0_host")
 HBM_PEAK = 3.35e12  # B/s, H100 SXM data sheet
 FP32_PEAK = 67e12   # FLOP/s outside the tensor cores, H100 SXM data sheet
 SPMM_TOL = {torch.float32: 3e-6, torch.float64: 1e-12}
@@ -626,7 +649,7 @@ def phase_main_path(dev):
         f"({len(outs)} outputs, io {diag['io_s']:.2f} s); "
         f"iterations/step {np.mean(its):.1f} {its}; "
         f"{solve_s / diag['total_iterations'] * 1e3:.3f} ms/iteration; "
-        f"host blocked on the done read {diag['sync_s'] / solve_s:.1%} of "
+        f"host blocked on the (done, it) reads {diag['sync_s'] / solve_s:.1%} of "
         f"the solve; kernel launches {counts}")
     return model, launches
 
@@ -662,8 +685,8 @@ def _per_step_gaps(model, dev, n, **kw):
         t_cpu += time.perf_counter() - t0
         if not (i32.converged and i64.converged and if32.converged):
             raise AssertionError(f"cross-check step at t={t} did not converge")
-        its32.append(i32.iterations)
-        its64.append(i64.iterations)
+        its32.append(int(i32.iterations))
+        its64.append(int(i64.iterations))
         scale = tol * s64.A.abs().max().item()
         step_ratios.append((f32.A.cpu().double() - s64.A).abs().max().item()
                            / scale)
@@ -739,7 +762,7 @@ def phase_scale(rec, dev):
         say(f"[7] 256x256x64 {name} x 5 steps: {wall / 5 * 1e3:.2f} ms/step, "
             f"iterations {diag['iterations']}, "
             f"{wall / diag['total_iterations'] * 1e3:.3f} ms/iteration, "
-            f"host blocked on the done read {diag['sync_s'] / wall:.1%}; "
+            f"host blocked on the (done, it) reads {diag['sync_s'] / wall:.1%}; "
             f"launches {counts}")
     last = {name: st for name, (st, _, _) in runs}
     gap5 = (last["split"].A - last["whole"].A).abs().max().item() / (
@@ -775,7 +798,7 @@ def phase_precond(model, dev):
             f"{wall / diag['steps'] * 1e3:.2f} ms/step, iterations/step "
             f"{np.mean(its):.2f} {its}, "
             f"{wall / diag['total_iterations'] * 1e3:.3f} ms/iteration, host "
-            f"blocked on the done read {diag['sync_s'] / wall:.1%}; "
+            f"blocked on the (done, it) reads {diag['sync_s'] / wall:.1%}; "
             f"launches {counts}")
     step_ratios, _, its32, its64, t_cpu = _per_step_gaps(model, dev, 3,
                                                          precond="jacobi")
@@ -921,7 +944,7 @@ def _field_run(sim, tag, label, **run_kw):
         f"{wall / diag['steps'] * 1e3:.2f} ms/step, iterations/step "
         f"{np.mean(its):.2f} {its}, "
         f"{wall / diag['total_iterations'] * 1e3:.3f} ms/iteration, host "
-        f"blocked on the done read {diag['sync_s'] / wall:.1%}; "
+        f"blocked on the (done, it) reads {diag['sync_s'] / wall:.1%}; "
         f"launches {counts}")
     return st, diag, counts
 
@@ -980,7 +1003,7 @@ def phase_field_scale(rec, dev):
         say(f"[11] 256x256x64 {name} x 5 steps: {wall / 5 * 1e3:.2f} ms/step, "
             f"iterations {diag['iterations']}, "
             f"{wall / diag['total_iterations'] * 1e3:.3f} ms/iteration, "
-            f"host blocked on the done read {diag['sync_s'] / wall:.1%}; "
+            f"host blocked on the (done, it) reads {diag['sync_s'] / wall:.1%}; "
             f"launches {counts}")
     try:
         Simulation(model, torch.float32, device=dev, system=sysm, precond="mg")
@@ -1171,7 +1194,8 @@ def phase_matrix_solve(model, dev, B, csr, setup):
     from eddy_currents_3d_tpu_torch.assembly.stencil import State
     from eddy_currents_3d_tpu_torch.ops.bsr_cuda import bsr_matvec
     from eddy_currents_3d_tpu_torch.ops.sparse import from_scipy
-    from eddy_currents_3d_tpu_torch.solvers.bicgstab import bicgstab_wr
+    from eddy_currents_3d_tpu_torch.solvers.bicgstab import (DeviceLoop,
+                                                             bicgstab_wr)
     from eddy_currents_3d_tpu_torch.solvers.ilu0 import (bicgstab_ilu0,
                                                           ilu0_factorize)
 
@@ -1206,28 +1230,46 @@ def phase_matrix_solve(model, dev, B, csr, setup):
     true_res = lambda x: (np.linalg.norm(
         b64 - csr @ x[:n].cpu().double().numpy()) / np.linalg.norm(b64))
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res, counts = counted(lambda: bicgstab_wr(lambda v: bsr_matvec(B, v), b,
-                                              xk1, tol, itmax))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # one device loop: its first solve captures the graphs (counted: the
+    # warm-up's launches and the graph's), then the same solve replayed,
+    # and by the per-iteration host loop (the plain version)
+    loop = DeviceLoop(lambda v: bsr_matvec(B, v), itmax)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (res, counts), wall = timed(lambda: counted(
+        lambda: loop.solve(b, xk1, tol)))
     launches = counts["bsr_spmm"]
     rel = true_res(res.x)
+    again, wall_g = timed(lambda: loop.solve(b, xk1, tol))
+    ref, wall_e = timed(lambda: loop.reference(b, xk1, tol))
+    its = max(res.iterations, 1)
     say(f"[14] matrix-form BiCGSTABwr on bsr_matvec (team7, from x_(k-1)): "
-        f"{res.iterations} iterations, {wall / max(res.iterations, 1) * 1e3:.3f} "
-        f"ms/iteration, true residual {rel:.3e} (tol {tol}), "
-        f"launches {counts}")
+        f"{res.iterations} iterations, true residual {rel:.3e} (tol {tol}), "
+        f"launches {counts}; ms/iteration graphed {wall_g / its * 1e3:.3f}, "
+        f"eager per-iteration loop {wall_e / its * 1e3:.3f}, first solve "
+        f"with its capture {wall / its * 1e3:.3f} (capture "
+        f"{wall - wall_g:.3f} s of host time)")
     if not (res.converged and rel < tol):
         raise AssertionError(f"matrix-form solve: converged {res.converged}, "
                              f"true residual {rel:.3e}")
+    if ((again.iterations, ref.iterations) != (res.iterations,) * 2
+            or not torch.equal(again.x, ref.x)
+            or not torch.equal(res.x, ref.x)):
+        raise AssertionError("matrix-form solve: graphed differs from the "
+                             "per-iteration loop")
     if launches < 2 * res.iterations or any(
             v for k_, v in counts.items() if k_ != "bsr_spmm"):
         raise AssertionError(f"matrix-form solve launched {counts} for "
                              f"{res.iterations} iterations")
-    r1, kernels, wall1 = trace(lambda: bicgstab_wr(
-        lambda v: bsr_matvec(B, v), b, xk1, tol, itmax))
-    say(f"[14] the same solve profiled: {r1.iterations} iterations, "
+    r1, kernels, wall1 = trace(lambda: loop.solve(b, xk1, tol))
+    say(f"[14] the same solve replayed, profiled: {r1.iterations} "
+        f"iterations, {wall1 / max(r1.iterations, 1) * 1e3:.3f} ms/iteration, "
         f"{_busy(kernels, wall1, r1.iterations)}")
 
     a = from_scipy(csr, torch.float32, dev)
@@ -1249,7 +1291,8 @@ def phase_matrix_solve(model, dev, B, csr, setup):
     t_it = (time.perf_counter() - t0) / max(r3.iterations, 1)
     say(f"[14] bicgstab_ilu0 on the CSR (ELL sweeps, 4 per triangle): "
         f"{r2.iterations} iterations, {wall2:.2f} s with its factorization, "
-        f"{t_it * 1e3:.3f} ms/iteration without it, true residual "
+        f"{t_it * 1e3:.3f} ms/iteration without it (the one-shot solve's "
+        f"capture included), true residual "
         f"{rel2:.3e}; host setup to_csr {setup[0]:.2f} s, bsr_from_scipy "
         f"{setup[1]:.2f} s, ilu0_factorize {t_fac:.2f} s")
     if not (r2.converged and rel2 < tol):
@@ -1290,7 +1333,7 @@ def phase_ilu0(model, dev):
         say(f"[15] team7 ilu0 {label} x {diag['steps']} steps: "
             f"{wall / diag['steps'] * 1e3:.2f} ms/step, iterations/step "
             f"{np.mean(its):.2f} {its}, {wall / total * 1e3:.3f} "
-            f"ms/iteration, host blocked on the done read "
+            f"ms/iteration, host blocked on the (done, it) reads "
             f"{diag['sync_s'] / wall:.1%}; setup {t_setup:.2f} s; "
             f"launches {counts}; 3 steps profiled: "
             f"{_busy(kernels, wall3, d3['total_iterations'])}")
@@ -1478,8 +1521,8 @@ def phase_bf16_team7(model, dev):
         if not (i16.converged and i64.converged):
             raise AssertionError(f"bf16 cross-check step at t={t} did not "
                                  "converge")
-        its16.append(i16.iterations)
-        its64.append(i64.iterations)
+        its16.append(int(i16.iterations))
+        its64.append(int(i64.iterations))
         gaps.append((s16.A.cpu().double() - s64.A).abs().max().item()
                     / (tol * s64.A.abs().max().item()))
     say(f"[15b] bf16 cuda vs f64 cpu free run, max |dA| / (tol scale): "
@@ -1522,11 +1565,12 @@ def phase_bf16_scale(rec, dev):
             f"{diag['iterations']}, unconverged steps "
             f"{diag['unconverged_steps']}, "
             f"{wall / diag['total_iterations'] * 1e3:.3f} ms/iteration, "
-            f"host blocked on the done read {diag['sync_s'] / wall:.1%}")
+            f"host blocked on the (done, it) reads {diag['sync_s'] / wall:.1%}")
     # one step of each profiled: where the device time goes
     sims["bf16 dot_dtype=None"] = Simulation(model, torch.bfloat16,
                                              device=dev,
                                              system=sims["bf16"].system)
+    sims["bf16 dot_dtype=None"].run(num_steps=1)     # captures its graphs
     for name in ("bf16", "bf16 dot_dtype=None", "f32"):
         (_, d1), kernels, wall1 = trace(lambda: sims[name].run(num_steps=1))
         its = d1["total_iterations"]
@@ -1675,6 +1719,204 @@ def phase_march_details(recs, logs, per_call, dev):
         + f" (phase 3), split {per_call:g} at scale256 (phase 4)")
 
 
+# phase 17: the solve configurations whose graphed solve is held to the
+# the device kernels of each wrapper on the Simulation's path, by the pieces
+# of their names in a trace
+GRAPH_KERNELS = {"coded_matvec": ("whole_march",),
+                 "coded_stencil": ("stencil_march",),
+                 "coded_slab": ("slab_march",),
+                 "field_a": ("field_a_kernel", "field_a_pairs"),
+                 "field_u": ("field_u_kernel", "field_u_pairs")}
+# the share of a wrapper's counted launches its trace must show: the
+# profiler can drop an event, but a kernel missing from a captured graph
+# (a launch the count adds that never ran) shows as a larger gap
+TRACE_SHARE = 0.95
+# phase 17's configurations, graphed against the eager per-iteration loop,
+# each (label, case, Simulation keywords)
+GRAPH_CONFIGS = (
+    ("team7", "team7", {}),
+    ("team7 jacobi", "team7", {"precond": "jacobi"}),
+    ("team7 cheb_jacobi", "team7", {"precond": "cheb_jacobi",
+                                    "cheb_order": 8}),
+    ("team7 ilu0", "team7", {"precond": "ilu0"}),
+    ("team7 field", "team7", {"use_coded": False}),
+    ("team7 mg", "team7", {"precond": "mg"}),
+    ("team7 bf16", "team7", {"dtype": torch.bfloat16,
+                             "dot_dtype": torch.float32}),
+    ("scale256 split", "scale256", {}),
+)
+
+
+def _chain(sim, n, eager=False):
+    """n steps of ``sim`` from a cold start, graphed (or on the eager
+    per-iteration loop): (states, infos, wall seconds ended by a
+    synchronize)."""
+    st = sim.init_state()
+    states, infos = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t, _ in sim.steps[:n]:
+        st, info = sim._step(st, t, eager=eager)
+        states.append(st)
+        infos.append(info)
+    torch.cuda.synchronize()
+    return states, infos, time.perf_counter() - t0
+
+
+def _same_chain(label, got, ref):
+    """Raise unless two chains agree bit for bit at every step: iterations,
+    converged, relres, A and U."""
+    for i, (sg, ig, sr, ir) in enumerate(zip(got[0], got[1], ref[0], ref[1])):
+        if ((int(ig.iterations), bool(ig.converged))
+                != (ir.iterations, ir.converged)
+                or not torch.equal(ig.relres, ir.relres)
+                or not torch.equal(sg.A, sr.A) or not torch.equal(sg.U, sr.U)):
+            raise AssertionError(
+                f"{label} step {i + 1}: graphed ({int(ig.iterations)}, "
+                f"{ig.relres.item()}) differs from the eager loop "
+                f"({ir.iterations}, {ir.relres.item()})")
+
+
+def _traced_chain(sim, eager):
+    """5 steps of ``sim`` from a cold start under the profiler, the counts
+    set to 0 before them and read after the run's launches are settled:
+    (traced kernels, wall seconds, launches by counter)."""
+    def run():
+        out = trace(lambda: _chain(sim, 5, eager=eager))
+        sim._settle()
+        return out
+
+    sim._settle()           # the earlier runs' launches, outside the count
+    (_, kernels, wall), counts = counted(run)
+    return kernels, wall, counts
+
+
+def _traced_launches(label, kernels, counts):
+    """{wrapper: (counted launches, traced events)} of one profiled run;
+    raises unless every wrapper's trace shows at most its counted launches
+    and at least TRACE_SHARE of them."""
+    out = {}
+    for name, parts in GRAPH_KERNELS.items():
+        seen = sum(c for k, (_, c) in kernels.items()
+                   if any(p in k for p in parts))
+        out[name] = (counts[name], seen)
+        if seen > counts[name] or seen < TRACE_SHARE * counts[name]:
+            raise AssertionError(f"{label}: {name} counted {counts[name]} "
+                                 f"launches, the trace holds {seen}")
+    return {k: v for k, v in out.items() if v[0]}
+
+
+def phase_graph(recs, model, dev):
+    """[17] The solve as one device program, in each of GRAPH_CONFIGS (team7
+    is ``model``, the main path's 20-step case): 5 steps graphed against 5
+    on the eager per-iteration loop, bit for bit (iterations, relres, A, U
+    at every step); host reads per solve within ceil((n + 1) / K) + 1 (a
+    graphed step makes none: its counts stay on the device until a run
+    reads them all); one capture per Simulation; ms/iteration and
+    ms/step of eager and graphed runs in turns (after one graphed step of
+    warm-up, which captures), and each one profiled: device µs per
+    iteration and busy share."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.solvers import bicgstab
+
+    cases = {"team7": (model, recs["team7"]["system"]),
+             "scale256": (recs["scale256"]["model"],
+                          recs["scale256"]["system"])}
+    # one graphed step traced first: a process's first profile of a graph
+    # once came back without the graph's kernels
+    warm = Simulation(model, torch.float32, device=dev,
+                      system=recs["team7"]["system"])
+    _chain(warm, 1)
+    trace(lambda: _chain(warm, 1))
+    del warm
+    for label, case, kw in GRAPH_CONFIGS:
+        kw = dict(kw)
+        dtype = kw.pop("dtype", torch.float32)
+        case_model, system = cases[case]
+        sim = Simulation(case_model, dtype, device=dev,
+                         system=system if dtype == torch.float32 else None,
+                         **kw)
+        t_cap = _chain(sim, 1)[2]            # captures
+        runs = {"eager": [], "graphed": []}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            runs[mode].append(_chain(sim, 5, eager=mode == "eager"))
+        _same_chain(label, runs["graphed"][0], runs["eager"][0])
+        _same_chain(label, runs["graphed"][1], runs["eager"][1])
+        infos = runs["graphed"][0][1]
+        its = [int(i.iterations) for i in infos]
+        reads = [i.reads for i in infos]
+        bad = [(n, r) for n, r in zip(its, reads)
+               if r > -(-(n + 1) // bicgstab.K) + 1]
+        if bad or sim.captures != 1 or not all(bool(i.converged)
+                                                for i in infos):
+            raise AssertionError(f"{label}: reads {reads} for iterations "
+                                 f"{its}, captures {sim.captures}")
+        n_it = sum(its)
+        ms = {m: [w / n_it * 1e3 for _, _, w in rs] for m, rs in runs.items()}
+        t_one = _chain(sim, 1)[2]
+        prof, seen = {}, {}
+        for mode in ("eager", "graphed"):
+            kernels, wall, counts = _traced_chain(sim, mode == "eager")
+            prof[mode] = _busy(kernels, wall, n_it)
+            seen[mode] = _traced_launches(f"{label} {mode}", kernels, counts)
+        say(f"[17] {label}: 5 steps, iterations {its}, graphed equals eager "
+            f"bit for bit; host reads per solve {reads}; capture "
+            f"{t_cap - t_one:.3f} s of host time (the first graphed step "
+            f"{t_cap:.3f} s, a later one {t_one:.3f}); ms/iteration "
+            f"eager {_fmt(ms['eager'])}, graphed {_fmt(ms['graphed'])}; "
+            f"profiled: eager {prof['eager']}; graphed {prof['graphed']}; "
+            f"launches counted/traced: eager {seen['eager']}, graphed "
+            f"{seen['graphed']}")
+        del sim
+
+
+def phase_scan(model, dev):
+    """[17] run_scan: team7 20 steps with VTK, byte for byte with run's
+    files; a run_scan without outputs under torch.cuda.set_sync_debug_mode
+    ("error") (the solves' reads are event waits, which it does not
+    flag); and a resume from the checkpoint taken at step 10 gives step
+    20's fields bit for bit."""
+    from eddy_currents_3d_tpu_torch import Simulation
+
+    sim = Simulation(model, torch.float32, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "run"), os.path.join(tmp, "scan")
+        st_run, _ = sim.run(output_dir=a)
+        st_scan, diag = sim.run_scan(output_dir=b)
+        names = sorted(os.listdir(a))
+        differ = [n for n in names if open(os.path.join(a, n), "rb").read()
+                  != open(os.path.join(b, n), "rb").read()]
+        if not names or sorted(os.listdir(b)) != names or differ:
+            raise AssertionError(f"run_scan VTK files differ from run's: "
+                                 f"{differ or names}")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            st_free, d_free = sim.run_scan()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ck = os.path.join(tmp, "ck")
+        Simulation(model, torch.float32, device=dev).run_scan(
+            num_steps=10, checkpoint_dir=ck, checkpoint_every=10)
+        st_res, d_res = Simulation(model, torch.float32, device=dev).run_scan(
+            checkpoint_dir=ck, checkpoint_every=10, resume=True)
+    if not all(torch.equal(getattr(st_res, f), getattr(st_scan, f))
+               for f in ("A", "U", "carry")) or d_res["start_step"] != 10:
+        raise AssertionError("the run resumed at step 10 differs from the "
+                             "uninterrupted run_scan")
+    if not (torch.equal(st_scan.A, st_run.A) and torch.equal(st_free.A,
+                                                             st_run.A)):
+        raise AssertionError("run_scan's final A differs from run's")
+    its = diag["iterations"].tolist()
+    say(f"[17] run_scan team7 x {len(its)} steps: VTK files ({len(names)}) "
+        f"equal run's byte for byte; without outputs {wall / sum(its) * 1e3:.3f}"
+        f" ms/iteration with no sync flagged (set_sync_debug_mode error); "
+        f"resumed from ckpt_10 equals the uninterrupted run bit for bit "
+        f"(iterations {d_res['iterations'].tolist()})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1700,6 +1942,8 @@ def main() -> int:
     phase_cross_check(model, dev)
     split_counts = phase_scale(recs["scale256"], dev)
     phase_precond(model, dev)
+    phase_graph(recs, model, dev)
+    phase_scan(model, dev)
     nocond = load_case(_nocond_text((102, 102, 24)))
     field_grids = [(name, recs[name]["model"], recs[name]["system"])
                    for name in ("team7", "convection", "scale256")]

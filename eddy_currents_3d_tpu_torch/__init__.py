@@ -13,7 +13,11 @@ the CPU their plain torch versions.  ILU(0) factors the exported CSR
 (``assembly.assemble.to_csr``) on the host (``csrc/ilu0_host.cpp``, built
 with ``g++``).  The general sparse tier (``ops/sparse.py``) holds the
 CSR/COO/ELL/BSR containers, with a hand-written block-sparse SpMM kernel
-(``ops/bsr_cuda.py``).  This package never imports jax.
+(``ops/bsr_cuda.py``).  Each solve runs as a device program
+(``solvers/bicgstab.py`` ``DeviceLoop``; on the card CUDA graphs, the host
+reading only ``(done, it)`` once per batch of iterations), under
+``Simulation.run`` and ``run_scan``, with checkpoints in the JAX package's
+format (``sim/checkpoint.py``).  This package never imports jax.
 """
 
 __version__ = "0.1.0"
@@ -27,10 +31,13 @@ from .ops.field import FieldStencilOperator
 from .ops.sparse import (BSRMatrix, COOMatrix, CSRMatrix, ELLMatrix,
                          bsr_from_scipy, from_scipy)
 from .ops.bsr_cuda import bsr_matvec, bsr_spmm
-from .solvers.bicgstab import bicgstab_jacobi, bicgstab_wr, bicgstab_wr_right
+from .solvers.bicgstab import (DeviceLoop, bicgstab_jacobi, bicgstab_wr,
+                               bicgstab_wr_right)
 from .solvers.ilu0 import ilu0_stencil_factorize
 from .solvers.multigrid import MgUnsupported, build_mg
-from .sim.simulate import Simulation, SimState
+from .sim.simulate import Simulation, SimState, StepInfo
+from .sim.checkpoint import (latest_checkpoint, load_checkpoint,
+                             model_fingerprint, save_checkpoint)
 
 __all__ = [
     "Model",
@@ -60,7 +67,13 @@ __all__ = [
     "bicgstab_wr",
     "bicgstab_wr_right",
     "bicgstab_jacobi",
+    "DeviceLoop",
     "Simulation",
     "SimState",
+    "StepInfo",
+    "save_checkpoint",
+    "load_checkpoint",
+    "latest_checkpoint",
+    "model_fingerprint",
     "__version__",
 ]

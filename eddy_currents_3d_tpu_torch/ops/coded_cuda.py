@@ -27,7 +27,8 @@ tier's (``ops/bsr_cuda.py``).
 
 The march kernels keep scratch for their dots (a pair of partials per CTA,
 the last-CTA counter) and their table of runs per operator, device and
-stream, so one operator may run on several streams at once.
+stream, so one operator may run on several streams at once, or per device
+program (``utils/graph.py``) while one is warmed up and captured.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from typing import Optional
 import torch
 
 from ..assembly.stencil import State
+from ..utils.graph import counted, program_scratch
 from ._build import load_library
 from .coded import coded_apply_reference
 
@@ -162,6 +164,7 @@ class CudaKernel:
 
     def __init__(self):
         self.launches = 0
+        counted(self)
         self._lib = None
         self._checked = set()     # devices whose arch was checked
 
@@ -203,7 +206,8 @@ class CudaKernel:
 
 class MarchKernel(CudaKernel):
     """A wrapper of a march kernel (``csrc/coded_march.cuh``): its scratch,
-    made once per operator, device and stream, and its resources."""
+    made once per operator, device and stream (or device program), and its
+    resources."""
 
     info_fn = ""    # the library's function reporting a kernel's resources
 
@@ -218,21 +222,28 @@ class MarchKernel(CudaKernel):
 
     def _scratch(self, op, dev):
         """(CTAs, partials, counter, run table) of ``op`` on ``dev`` for
-        the current stream: made on that stream at its first launch there,
-        the counter zeroed then and left zero by every launch.  Launches on
-        one stream follow each other; launches on two streams use two sets,
-        so one operator may run on both at once."""
-        key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-        per_op = self._scratch_of.setdefault(op, {})
-        if key not in per_op:
+        the current stream, or for the device program being warmed up or
+        captured (``utils/graph.py`` :func:`program_scratch`, freed with
+        its graph): made at its first launch there, the counter zeroed
+        then and left zero by every launch, so graph replays find it zero
+        too.  Launches on one stream (or in one graph) follow each other;
+        launches on two streams use two sets, so one operator may run on
+        both at once."""
+        store = program_scratch()
+        if store is None:
+            store = self._scratch_of.setdefault(op, {})
+            key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+        else:
+            key = (self, op, dev)
+        if key not in store:
             ctas, table = self._cover(op, dev)
             flat = torch.tensor(table, dtype=torch.int32).reshape(-1)
-            per_op[key] = (ctas,
-                           torch.empty((ctas, 2), dtype=torch.float32,
-                                       device=dev),
-                           torch.zeros(1, dtype=torch.int32, device=dev),
-                           flat.to(dev))
-        return per_op[key]
+            store[key] = (ctas,
+                          torch.empty((ctas, 2), dtype=torch.float32,
+                                      device=dev),
+                          torch.zeros(1, dtype=torch.int32, device=dev),
+                          flat.to(dev))
+        return store[key]
 
     def _info_args(self, mode, conv):
         return (mode, int(conv))

@@ -41,6 +41,7 @@ import ctypes
 import torch
 
 from ..assembly.stencil import _boxslice
+from ..utils.graph import counted
 from .coded_cuda import CudaKernel, check_tensors, cuda_only, ptr
 from .field import field_a_reference, field_u_reference
 
@@ -114,6 +115,7 @@ class _Count:
 
     def __init__(self):
         self.launches = 0
+        counted(self)
 
 
 # The kernels of csrc/field_stencil.cu in field_info's numbering, each with

@@ -40,13 +40,22 @@ so the coded operator keeps a full-shape U under it (``compact_u=False``,
 the whole-plane route).  The route choice is not a fallback: both tiers run
 hand-written kernels on the card, and a kernel that fails to build or
 launch raises.
+
+Each solve runs as a device program (``solvers/bicgstab.py``
+``DeviceLoop``, one per Simulation): on the card one CUDA graph launch
+with no host read, its iteration count and convergence flag left on the
+device until ``run``/``run_scan`` read every step's once, after the loop,
+as the JAX package does.  ``run_scan`` is the JAX package's chunked path
+(segments between outputs and checkpoints); checkpoints are its ``.npz``
+format (``sim/checkpoint.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time as _time
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -56,11 +65,12 @@ from ..assembly.stencil import State
 from ..models.model import Model
 from ..ops.coded import CodedUnsupported, from_assembled_coded
 from ..ops.field import FieldStencilOperator
-from ..solvers.bicgstab import bicgstab_wr, bicgstab_wr_right
-from ..solvers.chebyshev import bicgstab_wr_cheb
+from ..solvers.bicgstab import DeviceLoop
+from ..solvers.chebyshev import chebyshev_preconditioner
 from ..solvers.ilu0 import ilu0_stencil_factorize
 from ..solvers.multigrid import build_mg
 from ..utils.device import resolve_device
+from ..utils.graph import read_host
 from .motion import FunctionMotion, MotionState, advance_function, motion_init
 
 __all__ = ["Simulation", "SimState", "StepInfo"]
@@ -77,15 +87,18 @@ class SimState(NamedTuple):
 
 
 class StepInfo(NamedTuple):
-    iterations: int
-    relres: torch.Tensor
-    converged: bool
+    # int and bool, or, from a solve that made no host read (the card's
+    # one-launch solve), 0-d device tensors (int32, bool), as in JAX
+    iterations: object
+    relres: torch.Tensor  # on the device
+    converged: object
     # flat 0-based cells of each function's (possibly moved) source voxels,
     # in function order, and the source values in the working dtype —
     # consumed by the src VTK writer
     src_cells: tuple
     src_values: tuple
-    sync_s: float = 0.0   # host time blocked on the solver's done reads
+    sync_s: float = 0.0   # host time blocked on the solver's (done, it) reads
+    reads: int = 0        # the solve's host reads of (done, it)
 
 
 def _schedule(tran):
@@ -249,6 +262,15 @@ class Simulation:
                 field=self._tier is not None)
             self.ilu_sweeps = 2
 
+        # the solve: one device loop per solver-space shape, made at its
+        # first solve; on the card their CUDA graphs share one memory pool
+        self._tol = torch.tensor(model.solver.tolerance, dtype=dtype,
+                                 device=self.device)
+        self._loops = {}
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        self._staged = []   # (event, pinned buffer) of copies in flight
+
         self.steps = _schedule(model.tran)
         nx, ny, nz = model.shape_xyz
         self._N = nx * ny * nz
@@ -301,7 +323,96 @@ class Simulation:
         return float(torch.tensor(v, dtype=self.dtype))
 
     # ------------------------------------------------------------------
-    def _step(self, state: SimState, t: float) -> tuple[SimState, StepInfo]:
+    def _solve_form(self) -> dict:
+        """The operator, fused dots, preconditioner and right-Jacobi
+        scaling of this Simulation's solve, as :class:`DeviceLoop` takes
+        them (JAX simulate.py:560-636)."""
+        apply_fn = self.op.apply
+        coded = self.coded_op
+        # the coded operator's fused dots are in its own float32 sums: only
+        # for dot_dtype=None (JAX simulate.py:591-594, :627-629); the field
+        # tier and float64's flat-roll operator run them apart
+        fused = coded is not None and self.dot_dtype is None
+        form = {"apply_fn": apply_fn}
+        cheb = lambda op, lmax: chebyshev_preconditioner(
+            op, self.cheb_order, lmax / self.cheb_ratio, lmax)
+        if self.precond in ("jacobi", "cheb_jacobi"):
+            # right-Jacobi in the solver space: (A D^-1) y = b, x = D^-1 y
+            inv = self._jac[1]
+            form["scale"] = self._jac
+            if self.precond == "cheb_jacobi":
+                form["minv"] = cheb(
+                    lambda v: apply_fn(State(inv.A * v.A, inv.U * v.U)),
+                    self._scaled_lmax)
+            elif fused:
+                form["mv_dot"] = coded.apply_dots
+        elif self.precond == "cheb":
+            form["minv"] = cheb(apply_fn, self.system.gershgorin * 1.01)
+        elif self.precond == "mg":
+            form["minv"] = self._mg.apply
+        elif self.precond == "ilu0":
+            # the factors act on the full grid, which is the solver space
+            # here (compact_u=False on the coded route)
+            ilu, sweeps = self._ilu, self.ilu_sweeps
+            form["minv"] = lambda v: ilu.apply(v, sweeps=sweeps)
+        elif fused:
+            form["mv_dot"] = coded.apply_dots
+        return form
+
+    def _loop(self, b: State) -> DeviceLoop:
+        """The device loop of this Simulation's solve configuration for
+        the solver-space shape of ``b``, made at its first solve."""
+        key = (tuple(b.A.shape), tuple(b.U.shape))
+        if key not in self._loops:
+            self._loops[key] = DeviceLoop(
+                itmax=self.model.solver.itmax, dot_dtype=self.dot_dtype,
+                pool=self._pool, **self._solve_form())
+        return self._loops[key]
+
+    def _settle(self):
+        """Count the launches of every solve not read yet
+        (:meth:`DeviceLoop.settle`)."""
+        for loop in self._loops.values():
+            loop.settle()
+
+    @staticmethod
+    def _read_steps(infos):
+        """([iterations], [converged]) of ``infos`` on the host, in one read
+        where they are device tensors."""
+        if not infos or not isinstance(infos[0].iterations, torch.Tensor):
+            return ([int(i.iterations) for i in infos],
+                    [bool(i.converged) for i in infos])
+        its = torch.stack([i.iterations for i in infos])
+        conv = torch.stack([i.converged for i in infos]).to(its.dtype)
+        its, conv = read_host(torch.stack([its, conv])).tolist()
+        return its, [bool(c) for c in conv]
+
+    @property
+    def captures(self) -> int:
+        """CUDA graph captures of the solve programs so far (one per solve
+        configuration)."""
+        return sum(loop.captures for loop in self._loops.values())
+
+    def _upload(self, flat: np.ndarray) -> torch.Tensor:
+        """Host cell indices on the device without a synchronizing copy:
+        through pinned memory with ``non_blocking=True``, each pinned
+        buffer held until the event after its copy has passed."""
+        idx = torch.from_numpy(flat.astype(np.int64))
+        if self.device.type != "cuda":
+            return idx
+        pinned = idx.pin_memory()
+        out = pinned.to(self.device, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._staged = [(e, p) for e, p in self._staged if not e.query()]
+        self._staged.append((ev, pinned))
+        return out
+
+    def _step(self, state: SimState, t: float,
+              eager: bool = False) -> tuple[SimState, StepInfo]:
+        """One time step.  ``eager=True`` solves with the per-iteration
+        host loop (the solver's plain version) instead of the device loop,
+        for checks against it."""
         model = self.model
         sysm = self.system
         cond = sysm.cond_mask
@@ -326,8 +437,7 @@ class Simulation:
                 dist_rows.append(drow)
                 comp_rows.append(crow)
                 val = self._cast(fn(t))
-                base[comp, torch.from_numpy(flat.astype(np.int64)).to(
-                    self.device)] = val
+                base[comp].index_fill_(0, self._upload(flat), val)
                 src_cells.append(flat)
                 src_values.append(val)
             motion = MotionState(distance=np.stack(dist_rows),
@@ -336,7 +446,7 @@ class Simulation:
         else:
             for comp, fn, cells_np, cells, _ in self._funs:
                 val = self._cast(fn(t))
-                base[comp, cells] = val
+                base[comp].index_fill_(0, cells, val)
                 src_cells.append(cells_np)
                 src_values.append(val)
 
@@ -356,60 +466,16 @@ class Simulation:
                        2.0 * state.U - state.prev.U)
         else:
             x0 = State(state.A, state.U)
-        tol = torch.tensor(model.solver.tolerance, dtype=self.dtype,
-                           device=self.device)
-        coded = self.coded_op
         tier = self._tier
         if tier is not None:
             b, x0 = tier.pad_state(b), tier.pad_state(x0)
-        apply_fn = self.op.apply
-        itmax = model.solver.itmax
-        dd = self.dot_dtype
-        # the coded operator's fused dots are in its own float32 sums: only
-        # for dot_dtype=None (JAX simulate.py:591-594, :627-629)
-        fused = coded is not None and dd is None
-        if self.precond == "cheb":
-            lmax = sysm.gershgorin * 1.01
-            res = bicgstab_wr_cheb(apply_fn, b, x0, tol, itmax,
-                                   order=self.cheb_order,
-                                   lmin=lmax / self.cheb_ratio, lmax=lmax,
-                                   dot_dtype=dd)
-            sol = res.x
-        elif self.precond in ("jacobi", "cheb_jacobi"):
-            d, inv = self._jac
-            mul = lambda a, v: State(a.A * v.A, a.U * v.U)
-            scaled = lambda v: apply_fn(mul(inv, v))
-            if self.precond == "cheb_jacobi":
-                lmax = self._scaled_lmax
-                res = bicgstab_wr_cheb(scaled, b, mul(d, x0), tol, itmax,
-                                       order=self.cheb_order,
-                                       lmin=lmax / self.cheb_ratio, lmax=lmax,
-                                       dot_dtype=dd)
-            else:
-                # the fused dots of the right-scaled operator A D^-1 v
-                mvd = ((lambda v, w: coded.apply_dots(mul(inv, v), w))
-                       if fused else None)
-                res = bicgstab_wr(scaled, b, mul(d, x0), tol, itmax,
-                                  dot_dtype=dd, mv_dot=mvd)
-            sol = mul(inv, res.x)
-        elif self.precond == "mg":
-            res = bicgstab_wr_right(apply_fn, self._mg.apply, b, x0, tol,
-                                    itmax, dot_dtype=dd)
-            sol = res.x
-        elif self.precond == "ilu0":
-            # the factors act on the full grid, which is the solver space
-            # here (compact_u=False on the coded route)
-            minv = lambda v: self._ilu.apply(v, sweeps=self.ilu_sweeps)
-            res = bicgstab_wr_right(apply_fn, minv, b, x0, tol, itmax,
-                                    dot_dtype=dd)
-            sol = res.x
-        else:
-            # only the coded operator fuses the dots (in float32); the
-            # field tier and float64's flat-roll operator run them apart
-            mvd = coded.apply_dots if fused else None
-            res = bicgstab_wr(apply_fn, b, x0, tol, itmax, dot_dtype=dd,
-                              mv_dot=mvd)
-            sol = res.x
+        loop = self._loop(b)
+        # the device loop makes no host read: on the card the iterations
+        # and convergence flag stay 0-d device tensors until a run reads
+        # them all after its loop
+        res = (loop.reference(b, x0, self._tol) if eager
+               else loop.solve(b, x0, self._tol, read=False))
+        sol = res.x
         if tier is not None:
             sol = tier.unpad_state(sol)
         A_new, U_new = sol.A, sol.U
@@ -431,51 +497,194 @@ class Simulation:
             src_cells=tuple(src_cells),
             src_values=tuple(src_values),
             sync_s=res.sync_s,
+            reads=res.reads,
         )
         return new_state, info
 
     # ------------------------------------------------------------------
+    def _write(self, state: SimState, info: StepInfo, npoint: int,
+               output_dir: str) -> None:
+        """field_N.vtk / src_N.vtk of one output point, synchronously, from
+        one host copy of A and the carry (bfloat16 widened to float32 on
+        the device first: exact)."""
+        from ..io.vtk import write_outputs
+
+        host = torch.stack([state.A, state.carry])
+        if host.dtype == torch.bfloat16:
+            host = host.float()
+        host = host.cpu().numpy()
+        write_outputs(self, state._replace(A=host[0], carry=host[1]), info,
+                      npoint, output_dir)
+
+    def _load_resume(self, checkpoint_dir, fingerprint):
+        """Shared resume: newest checkpoint -> (state, start_index), with
+        warm-start-history normalization to this run's mode."""
+        from . import checkpoint as ckpt
+        path = ckpt.latest_checkpoint(checkpoint_dir)
+        if path is None:
+            return None, 0
+        state, start, _ = ckpt.load_checkpoint(path, fingerprint, self.dtype,
+                                               self.device)
+        # a pre-extrapolation checkpoint seeds prev = x (the first resumed
+        # step starts from the previous solution, then extrapolation takes
+        # over); "previous" mode drops any stored history
+        if self.warm_start == "extrapolate" and state.prev is None:
+            state = state._replace(prev=State(state.A, state.U))
+        if self.warm_start == "previous" and state.prev is not None:
+            state = state._replace(prev=None)
+        return state, start
+
+    def _start(self, initial_state, checkpoint_dir, resume):
+        """(state, start step, fingerprint) of a run: the newest checkpoint
+        under ``resume``, else ``initial_state``, else a cold start."""
+        from . import checkpoint as ckpt
+
+        if resume and checkpoint_dir is None:
+            raise ValueError("resume=True requires checkpoint_dir")
+        start = 0
+        state = initial_state
+        fingerprint = None
+        if checkpoint_dir is not None:
+            fingerprint = ckpt.model_fingerprint(self.model)
+            if resume:
+                loaded, start = self._load_resume(checkpoint_dir, fingerprint)
+                if loaded is not None:   # no checkpoint yet: keep
+                    state = loaded       # initial_state (or cold start)
+        if state is None:
+            state = self.init_state()
+        return state, start, fingerprint
+
+    def _run_steps(self, steps, state, start, fingerprint, output_dir=None,
+                   on_output=None, progress=False, checkpoint_dir=None,
+                   checkpoint_every=0):
+        """Steps ``start..len(steps)`` from ``state``, with the outputs,
+        ``on_output`` calls, ticker and checkpoints of :meth:`run` (JAX
+        simulate.py:941-985).  Returns (state, step infos, io seconds)."""
+        from . import checkpoint as ckpt
+
+        if output_dir is not None:
+            os.makedirs(output_dir, exist_ok=True)
+        every = checkpoint_every if checkpoint_dir is not None else 0
+        infos = []
+        t_io = 0.0
+        last_ck = None
+        tick = max(len(self.steps) // 100, 1)
+        for idx in range(start, len(steps)):
+            t, out = steps[idx]
+            state, info = self._step(state, t)
+            infos.append(info)
+            if out is not None:
+                t1 = _time.perf_counter()
+                if output_dir is not None:
+                    self._write(state, info, out, output_dir)
+                if on_output is not None:
+                    on_output(out, state, info)
+                t_io += _time.perf_counter() - t1
+            if every and (idx + 1) % every == 0:
+                t1 = _time.perf_counter()
+                ckpt.save_checkpoint(
+                    os.path.join(checkpoint_dir, f"ckpt_{idx + 1}.npz"),
+                    state, idx + 1, out or 0, fingerprint)
+                last_ck = idx + 1
+                t_io += _time.perf_counter() - t1
+            if progress and idx % tick == 0:
+                print(">", end="", flush=True)
+        # final checkpoint only when steps actually ran this call (an
+        # empty horizon, or resuming past num_steps, must neither crash on
+        # steps[-1] nor write a checkpoint whose step index contradicts
+        # the state it contains) and the loop didn't just write the
+        # identical ckpt_<len>.npz itself
+        if every and start < len(steps) and last_ck != len(steps):
+            ckpt.save_checkpoint(
+                os.path.join(checkpoint_dir, f"ckpt_{len(steps)}.npz"),
+                state, len(steps), steps[-1][1] or 0, fingerprint)
+        return state, infos, t_io
+
+    def run_scan(self, num_steps: Optional[int] = None,
+                 initial_state: Optional[SimState] = None,
+                 output_dir: Optional[str] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0,
+                 resume: bool = False):
+        """Run ``num_steps`` timesteps with no host round trip between
+        outputs.
+
+        The JAX package's ``run_scan`` is one ``lax.scan`` dispatch, or,
+        where the backend has no host callbacks, its chunked path: one scan
+        between consecutive outputs and checkpoints.  CUDA has no
+        ``io_callback``, so this is the chunked path: a segment is the steps
+        between two outputs, also cut at checkpoint boundaries, and inside
+        it the host reads nothing (each solve is one graph launch whose
+        counts stay on the device; every step's are read once, at the
+        end).  With ``output_dir``, field_N.vtk / src_N.vtk are written at
+        the jump cadence, each output from one host copy, synchronously;
+        the files equal :meth:`run`'s.  ``checkpoint_dir`` +
+        ``checkpoint_every`` save ckpt_<step>.npz (as :meth:`run`), and
+        ``resume=True`` continues from the newest one.
+
+        Returns (final_state, JAX's stacked diagnostics: ``iterations``
+        int32, ``relres`` in the solver's dtype, ``converged`` bool, each
+        one entry per step run, ``start_step`` and ``io_s``).
+        """
+        state, start, fingerprint = self._start(initial_state,
+                                                checkpoint_dir, resume)
+        steps = self.steps if num_steps is None else self.steps[:num_steps]
+        state, infos, t_io = self._run_steps(
+            steps, state, start, fingerprint, output_dir,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+        # resuming at/after the last step leaves nothing to run; the empty
+        # relres takes the state's dtype, as in JAX
+        iters, conv = self._read_steps(infos)
+        self._settle()
+        rr = (torch.stack([i.relres for i in infos]) if infos
+              else torch.zeros((0,), dtype=self.dtype, device=self.device))
+        return state, {"iterations": torch.tensor(iters, dtype=torch.int32),
+                       "relres": rr,
+                       "converged": torch.tensor(conv, dtype=torch.bool),
+                       "start_step": start,
+                       "io_s": t_io}
+
     def run(
         self,
         num_steps: Optional[int] = None,
         output_dir: Optional[str] = None,
+        on_output: Optional[Callable] = None,
+        progress: bool = False,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
+        resume: bool = False,
         initial_state: Optional[SimState] = None,
     ):
         """Run the transient.
 
         * ``output_dir``: write field_N.vtk / src_N.vtk at the jump cadence,
-          synchronously, from one host copy of A and the carry per output
-          (bfloat16 widened to float32 on the device first: exact).
+          synchronously, from one host copy of A and the carry per output.
+        * ``on_output(npoint, state, info)``: callback at each output point.
+        * ``checkpoint_dir`` + ``checkpoint_every``: save ckpt_<step>.npz
+          every N steps; ``resume=True`` continues from the newest one
+          (validated against a model fingerprint).
+        * ``progress``: the reference's 1%% ``>`` ticker (EC3D.f90:446-450).
 
         Returns (final_state, diagnostics dict with per-step iteration
-        counts, the wall / io / solver-sync seconds, and the unconverged
-        steps).
+        counts, the wall / io / solver-sync seconds, the host reads of the
+        solves' (done, it), and the unconverged steps).
         """
-        from ..io.vtk import write_outputs
-
-        state = initial_state if initial_state is not None else self.init_state()
+        state, start, fingerprint = self._start(initial_state,
+                                                checkpoint_dir, resume)
         steps = self.steps if num_steps is None else self.steps[:num_steps]
-        infos = []
         t0 = _time.perf_counter()
-        t_io = 0.0
-        for t, out in steps:
-            state, info = self._step(state, t)
-            infos.append(info)
-            if out is not None and output_dir is not None:
-                t1 = _time.perf_counter()
-                host = torch.stack([state.A, state.carry])
-                if host.dtype == torch.bfloat16:
-                    host = host.float()
-                host = host.cpu().numpy()
-                write_outputs(self, state._replace(A=host[0], carry=host[1]),
-                              info, out, output_dir)
-                t_io += _time.perf_counter() - t1
+        state, infos, t_io = self._run_steps(
+            steps, state, start, fingerprint, output_dir, on_output,
+            progress, checkpoint_dir, checkpoint_every)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = _time.perf_counter() - t0
 
-        iters = [i.iterations for i in infos]
-        unconverged = [i for i, inf in enumerate(infos) if not inf.converged]
+        # the per-step diagnostics, read once after the loop (JAX
+        # simulate.py:987-988)
+        iters, conv = self._read_steps(infos)
+        self._settle()
+        unconverged = [start + i for i, c in enumerate(conv) if not c]
         if unconverged:
             # the reference prints the residual norm on itmax overflow and
             # carries on (solvers.f90:25-27)
@@ -485,8 +694,10 @@ class Simulation:
             "wall_s": wall,
             "io_s": t_io,
             "sync_s": sum(i.sync_s for i in infos),
-            "steps": len(steps),
+            "steps": len(steps) - start,
+            "start_step": start,
             "iterations": iters,
             "total_iterations": int(sum(iters)),
+            "reads": [i.reads for i in infos],
             "unconverged_steps": unconverged,
         }

@@ -49,12 +49,14 @@ def chebyshev_preconditioner(apply_fn: Callable, order: int, lmin: float,
 
 def bicgstab_wr_cheb(apply_fn: Callable, b, x0, tol, itmax: int, *,
                      order: int, lmin: float, lmax: float,
-                     dot_dtype: Optional[torch.dtype] = None) -> SolveResult:
+                     dot_dtype: Optional[torch.dtype] = None,
+                     k: Optional[int] = None) -> SolveResult:
     """Right-Chebyshev-preconditioned BiCGSTABwr in delta form:
     :func:`~.bicgstab.bicgstab_wr_right` with the Chebyshev ``M``, so the
     stop test stays ``||b - A x|| / ||b|| < tol`` and a warm start that
     already meets it returns ``x0`` with 0 iterations.  ``dot_dtype`` is
-    the reductions' dtype, as for ``bicgstab_wr``."""
+    the reductions' dtype and ``k`` the iterations between host reads, as
+    for ``bicgstab_wr``."""
     M = chebyshev_preconditioner(apply_fn, order, lmin, lmax)
     return bicgstab_wr_right(apply_fn, M, b, x0, tol, itmax,
-                             dot_dtype=dot_dtype)
+                             dot_dtype=dot_dtype, k=k)

@@ -4,6 +4,7 @@ and the field pair (field_a, field_u) on one CUDA card: another
 checkout's build against this tree's.
 
     python3 split_bench.py --parent DIR [--out OUT] [--kernels-only]
+    python3 split_bench.py --parent DIR --steps [--out OUT]
     python3 split_bench.py --probe
     python3 split_bench.py --witness
 
@@ -49,6 +50,11 @@ The last lines compare the hashes (DIR against this tree, and within each
 build the split pair against coded_matvec) and give each build's numbers.
 ``--kernels-only`` leaves out the 256x256x64 runs (phase 7, the split
 profile and the step-1 witness), which take most of the time.
+
+``--steps`` (with ``--parent``) runs only team7's 20 main-path steps in
+each process, in the same turns, after one step of warm-up: ms/step and
+ms/iteration of the eager per-iteration loop (a build without the device
+loop has no other) and of the graphed solve (:func:`steps_child`).
 
 ``--probe`` alone measures this tree's whole-plane matvec at team7: its
 registers, spills and resident CTAs per SM, device µs per call of apply,
@@ -283,12 +289,15 @@ def _step1_gaps(rec, dev, store):
                 sim = Simulation(model, torch.float32, device=dev,
                                  system=sysm)
                 assert sim.coded_op.split == (route == "split")
-                st, diag = sim.run(num_steps=1)
+                # the hook reads each dot on the host: the eager
+                # per-iteration loop, whose bits the graphed solve equals
+                st, info = sim._step(sim.init_state(), sim.steps[0][0],
+                                     eager=True)
             finally:
                 coded._WHOLE_PLANE_BUDGET = prev
                 op_cls.apply_dots = kernel
             A[run] = st.A.double().cpu()
-            out["iterations"][run] = diag["iterations"]
+            out["iterations"][run] = [info.iterations]
     scale = model.solver.tolerance * ref["A"].abs().max().item()
     for run in A:
         out[run] = (A[run] - ref["A"]).abs().max().item() / scale
@@ -487,6 +496,7 @@ def _scale256_runs(cs, rec, dev, store, tag):
     from eddy_currents_3d_tpu_torch import Simulation
     sim = Simulation(rec["model"], torch.float32, device=dev,
                      system=rec["system"])
+    sim.run(num_steps=1)                              # builds, warms up
     (_, diag), kernels, wall = cs.trace(lambda: sim.run(num_steps=5))
     its = diag["total_iterations"]
     dev_us = sum(t for t, _ in kernels.values()) / its
@@ -608,6 +618,71 @@ def witness():
     return 0
 
 
+def steps_child(root, tag):
+    """team7's main path in ``root``'s build, 20 steps after one of
+    warm-up (which captures the graphs), three runs each: ms/step and
+    ms/iteration of the eager per-iteration loop, and, where the build has
+    the device loop (``Simulation._step(eager=...)``), of the graphed
+    solve."""
+    import inspect
+    import time
+
+    import torch
+
+    cs = _load_smoke(root)
+    dev = torch.device("cuda:0")
+    cs.phase_build()
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.testing.cases import (case_static,
+                                                          load_case)
+
+    model = load_case(case_static(shape_xyz=(102, 102, 24), steps=20))
+    sim = Simulation(model, torch.float32, device=dev)
+    modes = {"eager": {}}
+    if "eager" in inspect.signature(sim._step).parameters:
+        modes = {"eager": {"eager": True}, "graphed": {}}
+    out = {"tag": tag}
+    for name, kw in modes.items():
+        sim._step(sim.init_state(), sim.steps[0][0], **kw)
+        walls = []
+        for _ in range(3):
+            st, its = sim.init_state(), []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t, _ in sim.steps:
+                st, info = sim._step(st, t, **kw)
+                its.append(int(info.iterations))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[name] = {"iterations": its,
+                     "ms_per_step": [w / len(its) * 1e3 for w in walls],
+                     "ms_per_iteration": [w / sum(its) * 1e3 for w in walls]}
+        print(f"[split_bench {tag}] team7 20 steps {name}: ms/step "
+              + " ".join(f"{v:.3f}" for v in out[name]["ms_per_step"])
+              + ", ms/iteration "
+              + " ".join(f"{v:.4f}" for v in out[name]["ms_per_iteration"]),
+              flush=True)
+    print(TAG + json.dumps(out), flush=True)
+    return 0
+
+
+def steps(parent, out_dir):
+    """:func:`steps_child` of ``parent`` and of this tree in turns
+    (parent, change, change, parent)."""
+    os.makedirs(out_dir, exist_ok=True)
+    runs = [_run(["--steps-child", root, tag],
+                 os.path.join(out_dir, f"steps_{j}_{tag}.log"))
+            for j, (root, tag) in enumerate(
+                ((parent, "parent"), (HERE, "change"), (HERE, "change"),
+                 (parent, "parent")))]
+    its = {json.dumps(r[m]["iterations"]) for r in runs for m in r
+           if m != "tag"}
+    print(f"[summary] team7 iterations per step equal in every run and "
+          f"mode: {len(its) == 1}", flush=True)
+    print(TAG + json.dumps({"runs": runs}), flush=True)
+    return 0
+
+
 def _run(args, log):
     """Run this script with ``args`` in a new process; its output goes to
     ``log`` and its TAG line is returned."""
@@ -639,11 +714,18 @@ def main():
                     help="only the whole-plane matvec probe of this tree")
     ap.add_argument("--witness", action="store_true",
                     help="only the step-1 witness of this tree")
+    ap.add_argument("--steps", action="store_true",
+                    help="with --parent: only team7's 20 main-path steps, "
+                    "eager (and graphed where the build has it)")
     ap.add_argument("--child", nargs=3, metavar=("ROOT", "TAG", "STORE"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--steps-child", nargs=2, metavar=("ROOT", "TAG"),
                     help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
         return child(*a.child, scale_runs=not a.kernels_only)
+    if a.steps_child:
+        return steps_child(*a.steps_child)
     if a.probe:
         return probe()
     if a.witness:
@@ -657,6 +739,8 @@ def main():
         return 1
     os.makedirs(a.out, exist_ok=True)
     parent = os.path.abspath(a.parent)
+    if a.steps:
+        return steps(parent, a.out)
     store = tempfile.mkdtemp(prefix="split_bench_")
     runs = []
     try:
