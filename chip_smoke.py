@@ -9,7 +9,8 @@ Phases, each printed before the last line:
 2. build the native sources (csrc/coded_matvec.cu, csrc/coded_split.cu,
    csrc/field_stencil.cu, csrc/bsr_spmm.cu and the solve's WHILE-node
    graph csrc/solve_graph.cu with nvcc, the host ILU(0) engine
-   csrc/ilu0_host.cpp with g++), all at once, and load them;
+   csrc/ilu0_host.cpp and the VTK encoder csrc/ecio.cpp with g++), all at
+   once, and load them;
 3. the whole-plane kernel (coded_matvec) against its plain torch version on
    the card, for apply, apply_dots and apply_div, on case_static
    102x102x24, a small case_convection and case_static 256x256x64, with the
@@ -153,12 +154,31 @@ Phases, each printed before the last line:
    share), with each wrapper's counted launches in the profiled run held
    against its kernels' events in the trace (every counted launch traced
    but for the profiler's dropped events: at least TRACE_SHARE of them,
-   and no more events than launches); run_scan over team7's 20 steps with
-   VTK, its files equal run's byte for byte, a run_scan that makes no
+   and no more events than launches), the profiled run itself equal to
+   the eager loop's bit for bit; run_scan over team7's 20 steps with VTK,
+   its files equal run's byte for byte, a run_scan that makes no
    synchronizing call (torch.cuda.set_sync_debug_mode("error"); the
    solves' reads wait on an event, which it does not flag), and a run
    resumed from the checkpoint at step 10 equal to the uninterrupted one
-   bit for bit.
+   bit for bit;
+18. (run last, after phase 16) the run as users start it, and the
+   overlapped VTK writer with the native encoder (csrc/ecio.cpp): team7
+   (case_static 102x102x24, 20 steps, an output every step) in-process
+   with no VTK, with a synchronous write of each state through the numpy
+   writers (on_output, EC3D_NATIVE_IO=0) and with the overlapped writer
+   and the native encoder (run(output_dir)), two rounds in turns, ms/step
+   and io seconds of each, every file equal byte for byte to the first
+   synchronous numpy run's; then python -m eddy_currents_3d_tpu_torch
+   in.vxc -o out as a subprocess, and the same with --scan: each exits 0
+   and prints its Tcalc line, its matrix line equals matrix_stats(), and
+   its files equal the synchronous numpy run's byte for byte (the coded
+   whole-plane route repeats bit for bit); the CLI's main() in this
+   process, its kernels counted from 0 (coded_matvec must launch); the
+   same run(output_dir) under set_sync_debug_mode("error") (the loop's
+   thread makes no synchronizing call); examples/moving_coil.vxc through
+   the CLI (moving sources through the writer): every step converges and
+   every output file is there; and one output at 256x256x64 (a 252 MB
+   field file) with each of those, as at team7, in one round.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is the card's name and power limit; the one before it the kernels' JSON
@@ -179,6 +199,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -191,7 +212,7 @@ import torch
 ATOL = 3e-6        # matvec: x output scale (tests/test_torch_coded.py)
 DOT_RTOL = 2e-5    # fused dots, relative to float64 sums
 SOURCES = ("coded_matvec", "coded_split", "field_stencil", "bsr_spmm",
-           "solve_graph", "ilu0_host")
+           "solve_graph", "ilu0_host", "ecio")
 HBM_PEAK = 3.35e12  # B/s, H100 SXM data sheet
 FP32_PEAK = 67e12   # FLOP/s outside the tensor cores, H100 SXM data sheet
 SPMM_TOL = {torch.float32: 3e-6, torch.float64: 1e-12}
@@ -390,8 +411,10 @@ def phase_build():
     wall = time.perf_counter() - t0
     for w in wrappers().values():
         w._library()
+    from eddy_currents_3d_tpu_torch.io import native as native_io
     from eddy_currents_3d_tpu_torch.ops.native import get_lib
     get_lib()
+    native_io.get_lib()
     for name, (path, log, seconds) in zip(SOURCES, built):
         say(f"[2] built {os.path.relpath(path)} in {seconds:.2f} s")
         for line in log.splitlines():
@@ -1727,10 +1750,14 @@ GRAPH_KERNELS = {"coded_matvec": ("whole_march",),
                  "coded_slab": ("slab_march",),
                  "field_a": ("field_a_kernel", "field_a_pairs"),
                  "field_u": ("field_u_kernel", "field_u_pairs")}
-# the share of a wrapper's counted launches its trace must show: the
-# profiler can drop an event, but a kernel missing from a captured graph
-# (a launch the count adds that never ran) shows as a larger gap
-TRACE_SHARE = 0.95
+# the share of a wrapper's counted launches its trace must show.  The
+# profiler drops some of a graphed run's kernel events now and then while
+# the run is unchanged bit for bit (trace_probe.py on an H100: 108 of 113
+# and 380 of 432; in this script once 103 of 113), and every graph kernel
+# event after ~45 such sessions in one process (this script profiles
+# fewer than 20 graphed runs); a launch counted but not run also shows in
+# the profiled run's own steps, which phase 17 holds to the eager loop's
+TRACE_SHARE = 0.85
 # phase 17's configurations, graphed against the eager per-iteration loop,
 # each (label, case, Simulation keywords)
 GRAPH_CONFIGS = (
@@ -1780,30 +1807,36 @@ def _same_chain(label, got, ref):
 def _traced_chain(sim, eager):
     """5 steps of ``sim`` from a cold start under the profiler, the counts
     set to 0 before them and read after the run's launches are settled:
-    (traced kernels, wall seconds, launches by counter)."""
+    (the chain (:func:`_chain`), traced kernels, wall seconds, launches by
+    counter)."""
     def run():
         out = trace(lambda: _chain(sim, 5, eager=eager))
         sim._settle()
         return out
 
     sim._settle()           # the earlier runs' launches, outside the count
-    (_, kernels, wall), counts = counted(run)
-    return kernels, wall, counts
+    (chain, kernels, wall), counts = counted(run)
+    return chain, kernels, wall, counts
 
 
 def _traced_launches(label, kernels, counts):
     """{wrapper: (counted launches, traced events)} of one profiled run;
     raises unless every wrapper's trace shows at most its counted launches
-    and at least TRACE_SHARE of them."""
+    and at least TRACE_SHARE of them, naming every wrapper's pair."""
     out = {}
     for name, parts in GRAPH_KERNELS.items():
         seen = sum(c for k, (_, c) in kernels.items()
                    if any(p in k for p in parts))
         out[name] = (counts[name], seen)
-        if seen > counts[name] or seen < TRACE_SHARE * counts[name]:
-            raise AssertionError(f"{label}: {name} counted {counts[name]} "
-                                 f"launches, the trace holds {seen}")
-    return {k: v for k, v in out.items() if v[0]}
+    bad = [n for n, (c, t) in out.items() if t > c or t < TRACE_SHARE * c]
+    out = {k: v for k, v in out.items() if v[0] or v[1]}
+    if bad:
+        raise AssertionError(
+            f"{label}: {', '.join(bad)} outside [{TRACE_SHARE}, 1] of the "
+            f"counted launches; counted/traced {out}; the traced run equals "
+            f"the eager loop's bit for bit; {len(kernels)} kernel names, "
+            f"{sum(c for _, c in kernels.values())} events in the trace")
+    return out
 
 
 def phase_graph(recs, model, dev):
@@ -1856,7 +1889,11 @@ def phase_graph(recs, model, dev):
         t_one = _chain(sim, 1)[2]
         prof, seen = {}, {}
         for mode in ("eager", "graphed"):
-            kernels, wall, counts = _traced_chain(sim, mode == "eager")
+            chain, kernels, wall, counts = _traced_chain(sim,
+                                                         mode == "eager")
+            # the profiled run's own steps: a launch counted but not run
+            # would change them
+            _same_chain(f"{label} {mode} profiled", chain, runs["eager"][0])
             prof[mode] = _busy(kernels, wall, n_it)
             seen[mode] = _traced_launches(f"{label} {mode}", kernels, counts)
         say(f"[17] {label}: 5 steps, iterations {its}, graphed equals eager "
@@ -1915,6 +1952,218 @@ def phase_scan(model, dev):
         f" ms/iteration with no sync flagged (set_sync_debug_mode error); "
         f"resumed from ckpt_10 equals the uninterrupted run bit for bit "
         f"(iterations {d_res['iterations'].tolist()})")
+
+
+@contextlib.contextmanager
+def _native_io(on):
+    """EC3D_NATIVE_IO set to select the native encoder (on) or the numpy
+    writers, restored after."""
+    prev = os.environ.get("EC3D_NATIVE_IO")
+    os.environ["EC3D_NATIVE_IO"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("EC3D_NATIVE_IO", None)
+        else:
+            os.environ["EC3D_NATIVE_IO"] = prev
+
+
+def _vtk_run(sim, writer, encoder, out):
+    """run()'s diagnostics with VTK to ``out``: writer "overlapped"
+    (output_dir: the overlapped writer) or "sync" (on_output writing each
+    state as it comes, through io/vtk.py write_outputs), encoder "native"
+    or "numpy"; writer None writes nothing."""
+    from eddy_currents_3d_tpu_torch.io.vtk import write_outputs
+
+    with _native_io(encoder == "native"):
+        if writer is None:
+            return sim.run()[1]
+        if writer == "overlapped":
+            return sim.run(output_dir=out)[1]
+        return sim.run(on_output=lambda n, st, i: write_outputs(
+            sim, st, i, n, out))[1]
+
+
+def _same_files(ref, out, label):
+    """The number of files in ``out``, each equal to ``ref``'s byte for
+    byte (the same names)."""
+    import filecmp
+
+    names = sorted(os.listdir(ref))
+    differ = [n for n in names if not filecmp.cmp(
+        os.path.join(ref, n), os.path.join(out, n), shallow=False)]
+    if not names or sorted(os.listdir(out)) != names or differ:
+        raise AssertionError(f"{label}: VTK files differ from the "
+                             f"synchronous numpy run's: {differ or names}")
+    return len(names)
+
+
+# the writers timed by phase 18, in turns: (writer, encoder); None: no VTK
+IO_RUNS = ((None, None), ("sync", "numpy"), ("overlapped", "native"))
+
+
+def _io_table(label, sim, tmp, rounds):
+    """Each of IO_RUNS ``rounds`` times in turns (the order reversed every
+    other round) on ``sim``, after a one-step run that captures the
+    solve's graphs; every VTK run's files equal the first
+    synchronous numpy run's byte for byte.  Returns {(writer, encoder):
+    [(ms/step, io s), ...]}."""
+    ref = os.path.join(tmp, "sync-numpy")
+    table = {}
+    sim.run(num_steps=1)        # the first solve captures its graphs
+    for r in range(rounds):
+        for writer, encoder in (IO_RUNS if r % 2 == 0 else IO_RUNS[::-1]):
+            out = os.path.join(tmp, f"{writer}-{encoder}")
+            d = _vtk_run(sim, writer, encoder, out)
+            if d["unconverged_steps"]:
+                raise AssertionError(f"{label}: unconverged steps "
+                                     f"{d['unconverged_steps']}")
+            table.setdefault((writer, encoder), []).append(
+                (d["wall_s"] / d["steps"] * 1e3, d["io_s"]))
+            if writer is not None and out != ref:
+                _same_files(ref, out, f"{label} {writer} {encoder}")
+                shutil.rmtree(out)
+    return table
+
+
+def _say_io(label, table, nbytes):
+    parts = []
+    for (writer, encoder), runs in table.items():
+        name = "no VTK" if writer is None else f"{writer} {encoder}"
+        parts.append(f"{name} " + ", ".join(
+            f"{ms:.2f} ms/step (io {io:.3f} s)" for ms, io in runs))
+    say(f"[18] {label} (a field file of {nbytes / 1e6:.1f} MB): "
+        + "; ".join(parts))
+
+
+def _cli(args, cwd):
+    """``python -m eddy_currents_3d_tpu_torch args`` run in ``cwd`` as a
+    user runs it; raises unless it exits 0 and prints its Tcalc line.
+    Returns its standard output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run(
+        [sys.executable, "-m", "eddy_currents_3d_tpu_torch", *args],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or "Tcalc = " not in proc.stdout:
+        raise AssertionError(
+            f"CLI {args} exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+            f"\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _cli_line(text, key):
+    return next(ln for ln in text.splitlines() if ln.startswith(key))
+
+
+def _matrix_numbers(text):
+    """The numbers of the CLI's three matrix lines."""
+    import re
+
+    lines = text.splitlines()
+    i = next(k for k, ln in enumerate(lines) if ln.startswith("matrix"))
+    return [float(v) for v in re.findall(r"[=:] ([0-9.e+-]+)",
+                                         " ".join(lines[i:i + 3]))]
+
+
+def phase_cli(dev):
+    """[18] The run as users start it, python -m eddy_currents_3d_tpu_torch
+    in.vxc on the card, and the overlapped VTK writer with the native
+    encoder.  Fails on any fault."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.__main__ import main as cli_main
+    from eddy_currents_3d_tpu_torch.models.vxc import read_vxc
+    from eddy_currents_3d_tpu_torch.sim.simulate import _schedule
+    from eddy_currents_3d_tpu_torch.testing.cases import case_static, load_case
+
+    text = case_static(shape_xyz=(102, 102, 24), steps=20)
+    model = load_case(text)
+    nbytes = 60 * model.n_cells
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "in.vxc"), "w") as f:
+            f.write(text)
+        # the in-process reference first: the synchronous numpy run, whose
+        # files every other writer must equal; then each writer in turns
+        sim = Simulation(model, torch.float32, device=dev)
+        table = _io_table("team7 x 20 steps, an output every step", sim,
+                          tmp, 2)
+        ref = os.path.join(tmp, "sync-numpy")
+        # the entry point as a user runs it, and with --scan
+        outs = {}
+        for extra in ([], ["--scan"]):
+            out = "out" + "".join(extra).replace("-", "_")
+            stdout = _cli(["in.vxc", "-o", out, *extra], tmp)
+            n_files = _same_files(ref, os.path.join(tmp, out),
+                                  f"CLI {extra}")
+            outs[" ".join(["python -m ... in.vxc", *extra])] = (
+                _cli_line(stdout, "Tcalc"), _cli_line(stdout, "backend"),
+                n_files)
+            st = sim.system.matrix_stats()
+            want = [st[k] for k in ("nnz_x", "nnz_y", "nnz_z", "nnz_u",
+                                    "bnd_x", "bnd_y", "bnd_z", "nnz")]
+            want.append(float(f"{st['density_pct']:.5g}"))
+            if _matrix_numbers(stdout) != want:
+                raise AssertionError(f"CLI matrix line "
+                                     f"{_matrix_numbers(stdout)} against "
+                                     f"matrix_stats() {want}")
+        # the same entry point in this process, its kernels counted
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            rc, counts = counted(lambda: cli_main(["in.vxc", "-o", "counted",
+                                                   "-q"]))
+        finally:
+            os.chdir(cwd)
+        _same_files(ref, os.path.join(tmp, "counted"), "CLI main()")
+        if rc != 0 or counts["coded_matvec"] <= 0:
+            raise AssertionError(f"CLI main() rc {rc}, launches {counts}")
+        # the loop's thread makes no synchronizing call with an output every
+        # step (the writer's threads wait on events, which the check does
+        # not flag)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            d_sync = sim.run(output_dir=os.path.join(tmp, "nosync"))[1]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _same_files(ref, os.path.join(tmp, "nosync"), "run under the check")
+        for out in ("out", "out__scan", "counted", "nosync"):
+            shutil.rmtree(os.path.join(tmp, out))
+    for run, (tcalc, backend, n_files) in outs.items():
+        say(f"[18] {run}: {n_files} VTK files equal the in-process "
+            f"synchronous numpy run's byte for byte; matrix line equals "
+            f"matrix_stats(); {backend.strip()}; {tcalc.strip()}")
+    say(f"[18] CLI main() in this process: kernel launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    say(f"[18] run(output_dir) under set_sync_debug_mode('error'): no "
+        f"synchronizing call, {d_sync['wall_s'] / d_sync['steps'] * 1e3:.2f}"
+        f" ms/step, io {d_sync['io_s']:.3f} s")
+    _say_io("team7 x 20 steps, 19 outputs", table, nbytes)
+
+    # moving sources through the writer: examples/moving_coil.vxc
+    example = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", "moving_coil.vxc")
+    mc = read_vxc(example)
+    want = sorted(f"{k}_{o}.vtk" for _, o in _schedule(mc.tran)
+                  if o is not None for k in ("field", "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout = _cli([example, "-o", "out"], tmp)
+        got = sorted(os.listdir(os.path.join(tmp, "out")))
+    if got != want or " 0 unconverged step(s)" not in stdout:
+        raise AssertionError(f"moving_coil: {len(got)} files of "
+                             f"{len(want)}; {_cli_line(stdout, 'solver    : ')}")
+    say(f"[18] examples/moving_coil.vxc through the CLI: {len(got)} VTK "
+        f"files, every step converged; {_cli_line(stdout, 'Tcalc').strip()}"
+        f"; {stdout.splitlines()[-1].strip()}")
+
+    # one output of a large grid: what its user waits for
+    big = load_case(case_static(shape_xyz=(256, 256, 64), steps=2))
+    sim = Simulation(big, torch.float32, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        table = _io_table("scale256 x 2 steps, one output", sim, tmp, 1)
+    _say_io("scale256 x 2 steps, one output", table, 60 * big.n_cells)
 
 
 def main() -> int:
@@ -1977,6 +2226,9 @@ def main() -> int:
     say(f"[16] library yardstick of the split pair at 256x256x64: its CSR "
         f"(to_csr {t_csr256:.2f} s on the host) as torch.sparse_csr_tensor "
         f"@ x {csr256_ms * 1e3:.2f} us")
+    # last, after every profiled phase: with it before them, later traces
+    # dropped kernels' events (not measured; cause not found)
+    phase_cli(dev)
 
     # bytes each function must move (inputs read once, outputs written
     # once) and its FP32 operations, at the shapes of its record

@@ -14,10 +14,13 @@ the CPU their plain torch versions.  ILU(0) factors the exported CSR
 with ``g++``).  The general sparse tier (``ops/sparse.py``) holds the
 CSR/COO/ELL/BSR containers, with a hand-written block-sparse SpMM kernel
 (``ops/bsr_cuda.py``).  Each solve runs as a device program
-(``solvers/bicgstab.py`` ``DeviceLoop``; on the card CUDA graphs, the host
-reading only ``(done, it)`` once per batch of iterations), under
-``Simulation.run`` and ``run_scan``, with checkpoints in the JAX package's
-format (``sim/checkpoint.py``).  This package never imports jax.
+(``solvers/bicgstab.py`` ``DeviceLoop``; on the card one CUDA graph launch
+with no host read), under ``Simulation.run`` and ``run_scan``, with
+checkpoints in the JAX package's format (``sim/checkpoint.py``) and VTK
+through an overlapped writer and a native encoder (``io/native.py``,
+``csrc/ecio.cpp``).  ``python -m eddy_currents_3d_tpu_torch in.vxc`` is the
+JAX package's CLI on the card (``__main__.py``).  This package never
+imports jax.
 """
 
 __version__ = "0.1.0"

@@ -94,6 +94,28 @@ class AssembledSystem:
     def bnd_u_any(self):
         return torch.any(self.bnd_u, dim=0)
 
+    def matrix_stats(self) -> dict:
+        """Exact assembled-matrix statistics, matching the reference's
+        post-assembly prints (EC3D.f90:965-971: per-block nnz and one-sided
+        boundary-row counts; :1046-1047: total nnz + density, which the
+        reference computes against the *grid* cell count, not the unknown
+        count — reproduced as-is); the JAX package's ``matrix_stats``, from
+        the host copies (the boundary rows read back once)."""
+        ka = int(np.count_nonzero(self.np_ka))      # shared by the 3 A blocks
+        gu = [int(np.count_nonzero(self.np_gu[c])) for c in range(3)]
+        nz_u = (int(np.count_nonzero(self.np_ku))
+                + int(np.count_nonzero(self.np_da)))
+        nz_xyz = [ka + g for g in gu]
+        total = sum(nz_xyz) + nz_u
+        n_cells = int(np.prod(self.shape_zyx))
+        bnd = self.bnd_a.reshape(3, -1).sum(1).tolist()
+        return {
+            "nnz_x": nz_xyz[0], "nnz_y": nz_xyz[1], "nnz_z": nz_xyz[2],
+            "nnz_u": nz_u, "nnz": total,
+            "bnd_x": bnd[0], "bnd_y": bnd[1], "bnd_z": bnd[2],
+            "density_pct": 100.0 * total / n_cells / n_cells,
+        }
+
 
 # offset index bookkeeping for the 7-point arrays: [0, -x, +x, -y, +y, -z, +z]
 _MOFF = {0: 1, 1: 3, 2: 5}  # axis -> index of the minus-neighbor slot

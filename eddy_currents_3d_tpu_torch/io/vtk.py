@@ -2,7 +2,9 @@
 
 The PyTorch package's copy of the numpy writers of
 ``eddy_currents_3d_tpu/io/vtk.py``; the bytes are identical to that
-package's numpy path for the same data.
+package's numpy path for the same data.  ``write_outputs`` goes through the
+native encoder (``io/native.py``) unless ``EC3D_NATIVE_IO=0``; these numpy
+writers are its plain version.
 
 ``write_field`` mirrors ``writeVtk_field`` (utilites.f90:171-293): a
 big-endian STRUCTURED_GRID file with float32 POINTS and the vector fields
@@ -25,6 +27,8 @@ import os
 
 import numpy as np
 import torch
+
+from . import native
 
 __all__ = ["write_field", "write_src", "write_outputs", "read_vtk_vectors"]
 
@@ -171,19 +175,31 @@ def _host(x) -> np.ndarray:
 def write_outputs(sim, state, info, npoint: int, output_dir: str) -> None:
     """Write field_<n>.vtk + src_<n>.vtk for one output point.
 
-    ``state.A``/``state.carry`` and ``info.src_cells`` may be numpy arrays
-    or tensors on any device; everything is written from host copies."""
+    Through the native encoder (``io/native.py``, ``csrc/ecio.cpp``:
+    byte-identical, threaded curl, byteswap and interleave), or through
+    the numpy writers above when ``EC3D_NATIVE_IO=0``, the JAX package's
+    switch (its ``io/vtk.py`` ``write_outputs``).  ``state.A``/
+    ``state.carry`` and ``info.src_cells`` may be numpy arrays or tensors
+    on any device; the conductor mask is the model's host copy."""
     os.makedirs(output_dir, exist_ok=True)
+    model = sim.model
     A = _host(state.A).astype(np.float64)
     carry = _host(state.carry).astype(np.float64)
-    cond = _host(sim.system.cond_mask) if sim.model.n_cond else None
-    write_field(os.path.join(output_dir, f"field_{npoint}.vtk"),
-                sim.model.delta, A, carry, cond)
+    cond = model.cond_mask if model.n_cond else None
+    field_path = os.path.join(output_dir, f"field_{npoint}.vtk")
+    src_path = os.path.join(output_dir, f"src_{npoint}.vtk")
     cells = [_host(c) for c in info.src_cells]
     values = [float(v) for v in info.src_values]
-    dirs = [fn.direction for fn in sim.model.functions]
-    write_src(os.path.join(output_dir, f"src_{npoint}.vtk"), sim.model.delta,
-              sim.model.shape_xyz, cells, values, dirs)
+    dirs = [fn.direction for fn in model.functions]
+    if native.enabled():
+        native.write_field_native(field_path, model.delta, A, carry, cond,
+                                  EDDY_SCALE)
+        native.write_src_native(src_path, model.delta, model.shape_xyz,
+                                cells, values, dirs)
+    else:
+        write_field(field_path, model.delta, A, carry, cond)
+        write_src(src_path, model.delta, model.shape_xyz, cells, values,
+                  dirs)
 
 
 def read_vtk_vectors(path: str) -> dict:

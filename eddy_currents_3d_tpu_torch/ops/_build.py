@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``; the sources share device code
 through the headers ``csrc/*.cuh``.  Each ``csrc/<name>.cpp`` is host code
-(the ILU(0) factorization, ``ops/native.py``) and compiles the same way with
-``g++``.  The library goes into ``_build/`` inside the package (listed in
+(the ILU(0) factorization, ``ops/native.py``; the VTK encoder,
+``io/native.py``) and compiles the same way with ``g++ -pthread``.  The
+library goes into ``_build/`` inside the package (listed in
 ``.gitignore``) under a name that carries a hash of the source, the headers
 and the flags, so an edited source or header is rebuilt and a stale build
 is never loaded.  A missing compiler or a failed build raises.
@@ -29,7 +30,7 @@ BUILD_DIR = _PKG / "_build"
 # Hopper only: sm_90a keeps wgmma/setmaxnreg available to later kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 
 def _nvcc() -> str:

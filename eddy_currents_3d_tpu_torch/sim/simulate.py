@@ -47,14 +47,20 @@ with no host read, its iteration count and convergence flag left on the
 device until ``run``/``run_scan`` read every step's once, after the loop,
 as the JAX package does.  ``run_scan`` is the JAX package's chunked path
 (segments between outputs and checkpoints); checkpoints are its ``.npz``
-format (``sim/checkpoint.py``).
+format (``sim/checkpoint.py``).  VTK outputs go through the overlapped
+writer (:class:`_AsyncVtkWriter`): one device-to-host copy per output, the
+encoding on writer threads while the loop steps on.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
+import queue
+import threading
 import time as _time
+from types import SimpleNamespace
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -62,6 +68,7 @@ import torch
 
 from ..assembly.assemble import AssembledSystem, assemble_operator
 from ..assembly.stencil import State
+from ..io import native, vtk
 from ..models.model import Model
 from ..ops.coded import CodedUnsupported, from_assembled_coded
 from ..ops.field import FieldStencilOperator
@@ -99,6 +106,110 @@ class StepInfo(NamedTuple):
     src_values: tuple
     sync_s: float = 0.0   # host time blocked on the solver's (done, it) reads
     reads: int = 0        # the solve's host reads of (done, it)
+
+
+# the overlapped writer's pinned snapshots in flight: at most _PIN_BYTES
+# (one 256x256x64 float32 output is 101 MB, so 2 there; the JAX package's
+# 16-deep queue would pin 1.6 GB) and at most _DEPTH (JAX's depth)
+_PIN_BYTES = 256 << 20
+_DEPTH = 16
+# writer threads: one a core, at least the JAX package's 2 and at most 8
+# (8 on the card's 8-core host).  On that host 8 and 4 threads were within
+# each other's spread (PERF.md), 8 ahead in two runs of three; 2
+# was slower; more than 8 was not measured
+_WORKERS = max(2, min(8, os.cpu_count() or 2))
+
+
+class _AsyncVtkWriter:
+    """Overlapped VTK output, the counterpart of the JAX package's
+    ``_AsyncVtkWriter`` (``eddy_currents_3d_tpu/sim/simulate.py:55-171``).
+
+    Each output makes one device-to-host copy of A and the carry (stacked;
+    bfloat16 widened to float32 on the device first, which is exact) into
+    a pinned host buffer, non-blocking, and records an event after it; the
+    writer threads wait on the event, then encode and write
+    (``io/vtk.py`` ``write_outputs``) while the loop steps on.  The source
+    cells and values are host data already (``Simulation._step``), so only
+    the fields cross.  The copy runs on the stream that made the snapshot,
+    the step's own: the caching allocator hands the snapshot's memory to
+    no later kernel before the copy has read it, with no ``record_stream``,
+    and the loop's thread makes no synchronizing call.  Buffers are reused
+    once written, at most ``_PIN_BYTES`` of them; ``submit`` waits for one
+    when all are in flight.  A worker's exception is re-raised at the next
+    ``submit`` and at ``close``; a failed write is never dropped."""
+
+    def __init__(self, sim, output_dir: str):
+        os.makedirs(output_dir, exist_ok=True)
+        if native.enabled():
+            native.get_lib()    # a failed build raises here, before a step
+        self._sim = sim
+        self._dir = output_dir
+        self._cuda = sim.device.type == "cuda"
+        self._dtype = (torch.float64 if sim.dtype == torch.float64
+                       else torch.float32)
+        self._shape = (2, 3) + tuple(sim.model.shape_zyx)
+        nbytes = math.prod(self._shape) * self._dtype.itemsize
+        self.depth = max(1, min(_DEPTH, _PIN_BYTES // nbytes))
+        self._made = 0
+        self._free: queue.Queue = queue.Queue()
+        self._q: queue.Queue = queue.Queue()
+        self._err = None
+        self._ts = [threading.Thread(target=self._work, daemon=True)
+                    for _ in range(_WORKERS)]
+        for t in self._ts:
+            t.start()
+
+    def _buffer(self) -> torch.Tensor:
+        """A free host buffer: a written one, a new one while fewer than
+        ``depth`` exist, else the next one a worker frees."""
+        try:
+            return self._free.get_nowait()
+        except queue.Empty:
+            if self._made < self.depth:
+                self._made += 1
+                return torch.empty(self._shape, dtype=self._dtype,
+                                   pin_memory=self._cuda)
+            return self._free.get()
+
+    def _work(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            buf, ev, info, npoint = item
+            try:
+                if self._err is None:
+                    if ev is not None:
+                        ev.synchronize()
+                    host = buf.numpy()
+                    vtk.write_outputs(
+                        self._sim, SimpleNamespace(A=host[0], carry=host[1]),
+                        info, npoint, self._dir)
+            except Exception as e:  # re-raised on submit/close
+                self._err = e
+            finally:
+                self._free.put(buf)
+
+    def submit(self, state: "SimState", info: "StepInfo", npoint: int) -> None:
+        if self._err is not None:
+            raise self._err
+        buf = self._buffer()
+        snap = torch.stack([state.A, state.carry]).to(self._dtype)
+        buf.copy_(snap, non_blocking=self._cuda)
+        ev = None
+        if self._cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self._sim.device))
+        self._q.put((buf, ev, info, npoint))
+
+    def close(self) -> None:
+        """Wait for every write; raise the first worker's exception."""
+        for _ in self._ts:
+            self._q.put(None)
+        for t in self._ts:
+            t.join()
+        if self._err is not None:
+            raise self._err
 
 
 def _schedule(tran):
@@ -157,9 +268,14 @@ class Simulation:
         if dot_dtype not in (None, torch.float32, torch.float64):
             raise ValueError(f"dot_dtype must be None, float32 or float64, "
                              f"got {dot_dtype}")
-        if coeff_dtype not in (None, torch.bfloat16):
-            raise ValueError(f"coeff_dtype must be None or torch.bfloat16, "
-                             f"got {coeff_dtype}")
+        if coeff_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"coeff_dtype must be None, torch.float32 or "
+                             f"torch.bfloat16, got {coeff_dtype}")
+        if dtype == torch.bfloat16 and coeff_dtype == torch.float32:
+            raise ValueError(
+                "coeff_dtype=torch.float32 with bfloat16 state is not "
+                "ported: the field kernels take bfloat16 coefficients at "
+                "bfloat16 state")
         if precond not in (None, "cheb", "jacobi", "cheb_jacobi", "mg",
                            "ilu0"):
             raise ValueError(f"unknown preconditioner {precond!r}")
@@ -174,18 +290,20 @@ class Simulation:
         if self.system.device != self.device:
             raise ValueError(f"system is on {self.system.device}, "
                              f"simulation on {self.device}")
-        if coeff_dtype is not None:
-            # mixed precision: coefficient streams in bfloat16, state and
-            # accumulation in dtype; the solved operator is A rounded
-            # entrywise to bfloat16
+        if coeff_dtype is not None and coeff_dtype != self.system.op.dtype:
+            # mixed precision: coefficient streams in coeff_dtype, state
+            # and accumulation in dtype; the solved operator is A rounded
+            # entrywise to coeff_dtype (JAX simulate.py:220: a coeff_dtype
+            # equal to the system's casts nothing)
             self.system = dataclasses.replace(
                 self.system, op=self.system.op.astype(coeff_dtype))
         self.coeff_dtype = coeff_dtype
 
         # tier choice (JAX simulate.py:230-309, single device): the coded
         # operator where it applies; the field tier for every other float32
-        # or bfloat16 run.  use_coded=None routes CodedUnsupported to the
-        # field tier; an explicit use_coded=True never degrades.
+        # or bfloat16 run, any coeff_dtype included (JAX :252-253).
+        # use_coded=None routes CodedUnsupported to the field tier; an
+        # explicit use_coded=True never degrades.
         coded_ok = (dtype == torch.float32 and coeff_dtype is None
                     and precond != "mg")
         if use_coded and not coded_ok:
@@ -272,6 +390,7 @@ class Simulation:
         self._staged = []   # (event, pinned buffer) of copies in flight
 
         self.steps = _schedule(model.tran)
+        self.n_steps = len(self.steps)
         nx, ny, nz = model.shape_xyz
         self._N = nx * ny * nz
         self.flag_move = any(any(f.move) for f in model.functions)
@@ -502,20 +621,6 @@ class Simulation:
         return new_state, info
 
     # ------------------------------------------------------------------
-    def _write(self, state: SimState, info: StepInfo, npoint: int,
-               output_dir: str) -> None:
-        """field_N.vtk / src_N.vtk of one output point, synchronously, from
-        one host copy of A and the carry (bfloat16 widened to float32 on
-        the device first: exact)."""
-        from ..io.vtk import write_outputs
-
-        host = torch.stack([state.A, state.carry])
-        if host.dtype == torch.bfloat16:
-            host = host.float()
-        host = host.cpu().numpy()
-        write_outputs(self, state._replace(A=host[0], carry=host[1]), info,
-                      npoint, output_dir)
-
     def _load_resume(self, checkpoint_dir, fingerprint):
         """Shared resume: newest checkpoint -> (state, start_index), with
         warm-start-history normalization to this run's mode."""
@@ -557,38 +662,46 @@ class Simulation:
     def _run_steps(self, steps, state, start, fingerprint, output_dir=None,
                    on_output=None, progress=False, checkpoint_dir=None,
                    checkpoint_every=0):
-        """Steps ``start..len(steps)`` from ``state``, with the outputs,
-        ``on_output`` calls, ticker and checkpoints of :meth:`run` (JAX
-        simulate.py:941-985).  Returns (state, step infos, io seconds)."""
+        """Steps ``start..len(steps)`` from ``state``, with the outputs
+        (through :class:`_AsyncVtkWriter`), ``on_output`` calls, ticker and
+        checkpoints of :meth:`run` (JAX simulate.py:939-985).  Returns
+        (state, step infos, io seconds: the time the loop stayed blocked on
+        outputs and checkpoints, and the writer's drain)."""
         from . import checkpoint as ckpt
 
-        if output_dir is not None:
-            os.makedirs(output_dir, exist_ok=True)
         every = checkpoint_every if checkpoint_dir is not None else 0
         infos = []
         t_io = 0.0
         last_ck = None
         tick = max(len(self.steps) // 100, 1)
-        for idx in range(start, len(steps)):
-            t, out = steps[idx]
-            state, info = self._step(state, t)
-            infos.append(info)
-            if out is not None:
+        writer = (_AsyncVtkWriter(self, output_dir)
+                  if output_dir is not None else None)
+        try:
+            for idx in range(start, len(steps)):
+                t, out = steps[idx]
+                state, info = self._step(state, t)
+                infos.append(info)
+                if out is not None:
+                    t1 = _time.perf_counter()
+                    if writer is not None:
+                        writer.submit(state, info, out)
+                    if on_output is not None:
+                        on_output(out, state, info)
+                    t_io += _time.perf_counter() - t1
+                if every and (idx + 1) % every == 0:
+                    t1 = _time.perf_counter()
+                    ckpt.save_checkpoint(
+                        os.path.join(checkpoint_dir, f"ckpt_{idx + 1}.npz"),
+                        state, idx + 1, out or 0, fingerprint)
+                    last_ck = idx + 1
+                    t_io += _time.perf_counter() - t1
+                if progress and idx % tick == 0:
+                    print(">", end="", flush=True)
+        finally:
+            if writer is not None:
                 t1 = _time.perf_counter()
-                if output_dir is not None:
-                    self._write(state, info, out, output_dir)
-                if on_output is not None:
-                    on_output(out, state, info)
+                writer.close()      # drain the writes in flight
                 t_io += _time.perf_counter() - t1
-            if every and (idx + 1) % every == 0:
-                t1 = _time.perf_counter()
-                ckpt.save_checkpoint(
-                    os.path.join(checkpoint_dir, f"ckpt_{idx + 1}.npz"),
-                    state, idx + 1, out or 0, fingerprint)
-                last_ck = idx + 1
-                t_io += _time.perf_counter() - t1
-            if progress and idx % tick == 0:
-                print(">", end="", flush=True)
         # final checkpoint only when steps actually ran this call (an
         # empty horizon, or resuming past num_steps, must neither crash on
         # steps[-1] nor write a checkpoint whose step index contradicts
@@ -617,7 +730,7 @@ class Simulation:
         it the host reads nothing (each solve is one graph launch whose
         counts stay on the device; every step's are read once, at the
         end).  With ``output_dir``, field_N.vtk / src_N.vtk are written at
-        the jump cadence, each output from one host copy, synchronously;
+        the jump cadence through the overlapped writer, as in :meth:`run`;
         the files equal :meth:`run`'s.  ``checkpoint_dir`` +
         ``checkpoint_every`` save ckpt_<step>.npz (as :meth:`run`), and
         ``resume=True`` continues from the newest one.
@@ -657,8 +770,10 @@ class Simulation:
     ):
         """Run the transient.
 
-        * ``output_dir``: write field_N.vtk / src_N.vtk at the jump cadence,
-          synchronously, from one host copy of A and the carry per output.
+        * ``output_dir``: write field_N.vtk / src_N.vtk at the jump cadence
+          through the overlapped writer (:class:`_AsyncVtkWriter`: one
+          device-to-host copy of A and the carry per output, encoded and
+          written on writer threads; a writer's error is raised here).
         * ``on_output(npoint, state, info)``: callback at each output point.
         * ``checkpoint_dir`` + ``checkpoint_every``: save ckpt_<step>.npz
           every N steps; ``resume=True`` continues from the newest one
@@ -677,7 +792,12 @@ class Simulation:
             steps, state, start, fingerprint, output_dir, on_output,
             progress, checkpoint_dir, checkpoint_every)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            # wait for the last step on an event: a wait that
+            # set_sync_debug_mode does not flag, so a run with outputs can
+            # be held to no synchronizing call
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
         wall = _time.perf_counter() - t0
 
         # the per-step diagnostics, read once after the loop (JAX

@@ -190,6 +190,8 @@ def test_import_loads_no_jax():
             "eddy_currents_3d_tpu_torch.ops.sparse, "
             "eddy_currents_3d_tpu_torch.ops.bsr_cuda, "
             "eddy_currents_3d_tpu_torch.ops.native, "
+            "eddy_currents_3d_tpu_torch.io.native, "
+            "eddy_currents_3d_tpu_torch.__main__, "
             "eddy_currents_3d_tpu_torch.solvers.ilu0; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'eddy_currents_3d_tpu' not in sys.modules")
