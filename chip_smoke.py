@@ -5,7 +5,9 @@
 
 Phases, each printed before the last line:
 
-1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
+1. the card's name and power limit (nvidia-smi), torch and CUDA versions,
+   and the profiler's warm-up (sessions over one small kernel until a
+   trace shows it; none in 5 fails);
 2. build the native sources (csrc/coded_matvec.cu, csrc/coded_split.cu,
    csrc/field_stencil.cu, csrc/bsr_spmm.cu and the solve's WHILE-node
    graph csrc/solve_graph.cu with nvcc, the host ILU(0) engine
@@ -179,6 +181,27 @@ Phases, each printed before the last line:
    the CLI (moving sources through the writer): every step converges and
    every output file is there; and one output at 256x256x64 (a 252 MB
    field file) with each of those, as at team7, in one round.
+19. (field_a and field_u at bfloat16 state with float32 coefficients
+   before phase 16, the rest after phase 18; none of it profiled but the
+   first) float64, float32 coefficients at bfloat16 state and the z-slab
+   tier: the (float, bf16) instantiations of field_a and field_u against
+   their plain versions on team7, the small convection case and the odd
+   101x101x24 grid, bit for bit, on the scalar route, with times, bytes
+   and device µs at team7; team7 at float64 on the card (the flat-roll
+   operator, graphed, 5 steps) against phase 6's float64 CPU run within
+   F64_GAP (1e-9) of scale with the same iterations and no kernel
+   launched, and team7's exported matrix as float64 (8, 8) blocks through
+   bsr_matvec against the flat-roll float64 apply; the float32 flat-roll
+   tier (use_pallas=False) against the field tier within 4 tol scale after
+   step 1; team7 at bfloat16 state with float32 coefficients, 5 steps,
+   every field launch a float32-coefficient one, within BF16_GAP of the
+   float64 CPU run after step 1; the per-shard field kernels with their
+   ghost-plane corrections in one process (team7 and 256x256x64 cut into
+   2 and 4 z slabs, the ghosts handed over locally) against the global
+   kernels within SLAB_TOL of scale; and Simulation(mesh=make_mesh(1))
+   over NCCL at team7, float32, graphed, under set_sync_debug_mode
+   ("error"), equal bit for bit to the unsharded use_coded=False run, its
+   dots' all-reduce called during the capture and never after.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is the card's name and power limit; the one before it the kernels' JSON
@@ -188,7 +211,9 @@ phase 10's use_coded=False run for field_a and field_u, phase 14's BSR
 solve for bsr_spmm, phase 15b's 20-step dot_dtype=float32 run for the
 bfloat16-state field_a_bf16 and field_u_bf16, whose records also carry
 the route the run took, "kernel_route", and its launches on each route,
-"launches_by_route"), with its bound (bytes over
+"launches_by_route"; phase 19's 5-step run for field_a_f32coef and
+field_u_f32coef, bfloat16 state with float32 coefficients on the scalar
+route), with its bound (bytes over
 3.35 TB/s or operations over 67 TFLOP/s FP32, the larger) and the library
 call's time where one PyTorch call computes the same function; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
@@ -227,6 +252,9 @@ BF16_TOL = 0.0
 F32_FIELD_ITERS = [50, 43, 30, 28, 20, 20, 20, 7, 8, 14, 21, 28, 29, 10, 14,
                    15, 28, 9, 10, 15]
 BF16_GAP = 16.0    # bf16 team7 step 1 vs the f64 CPU step 1, tol scale
+F64_GAP = 1e-9     # f64 on the card vs the f64 CPU run, x scale (the CPU
+                   # parity bound of tests/test_shard_op.py's transients)
+SLAB_TOL = ATOL    # per-slab field kernels + ghost folds vs the global ones
 FIELD_ROUTES = ("paired", "scalar")   # the bfloat16-state field kernels
 KERNELS = {        # name: (source, TPU kernel it replaces)
     "coded_matvec": ("eddy_currents_3d_tpu_torch/csrc/coded_matvec.cu",
@@ -246,6 +274,12 @@ KERNELS = {        # name: (source, TPU kernel it replaces)
                      "eddy_currents_3d_tpu/ops/pallas_stencil.py:136"),
     "field_u_bf16": ("eddy_currents_3d_tpu_torch/csrc/field_stencil.cu",
                      "eddy_currents_3d_tpu/ops/pallas_stencil.py:206"),
+    # the (float, bf16) instantiations: bfloat16 state, float32
+    # coefficients (coeff_dtype=torch.float32)
+    "field_a_f32coef": ("eddy_currents_3d_tpu_torch/csrc/field_stencil.cu",
+                        "eddy_currents_3d_tpu/ops/pallas_stencil.py:136"),
+    "field_u_f32coef": ("eddy_currents_3d_tpu_torch/csrc/field_stencil.cu",
+                        "eddy_currents_3d_tpu/ops/pallas_stencil.py:206"),
 }
 
 
@@ -355,11 +389,14 @@ def wrappers():
 
 def counters():
     """{kernel name: its launch count's holder}: the wrappers, the field
-    wrappers' counts of their bfloat16-state launches, and of those on
-    each bfloat16-state route (paired, scalar)."""
+    wrappers' counts of their bfloat16-state launches, of those with
+    float32 coefficients, and of those on each bfloat16-state route
+    (paired, scalar)."""
     ws = wrappers()
     out = dict(ws, field_a_bf16=ws["field_a"].bf16_state,
-               field_u_bf16=ws["field_u"].bf16_state)
+               field_u_bf16=ws["field_u"].bf16_state,
+               field_a_f32coef=ws["field_a"].f32_coef,
+               field_u_f32coef=ws["field_u"].f32_coef)
     for k in ("field_a", "field_u"):
         for route in FIELD_ROUTES:
             out[f"{k}_{route}"] = getattr(ws[k], route)
@@ -399,7 +436,25 @@ def phase_device():
     say(card)
     say(f"[1] device: {torch.cuda.get_device_name(0)}  torch {torch.__version__}"
         f"  cuda {torch.version.cuda}  python {sys.version.split()[0]}")
+    say(f"[1] profiler warm-up: {profiler_warmup()} session(s) to the first "
+        "traced device kernel")
     return card
+
+
+def profiler_warmup(tries=5):
+    """Profiler sessions over one small elementwise kernel until a trace
+    holds its device event; returns how many it took, and raises if none
+    did.  A process's first session can trace no device event at all
+    while the kernels run (an empty eager trace in phase 3, twice on an
+    H100), as torch.profiler's own schedule discards its warm-up steps;
+    every later trace is held as strictly as before."""
+    x = torch.ones(1 << 16, device="cuda")
+    for n in range(1, tries + 1):
+        _, kernels, _ = trace(lambda: x.mul(2.0))
+        if kernels:
+            return n
+    raise AssertionError(f"torch.profiler traced no device kernel in {tries} "
+                         "sessions over one elementwise kernel")
 
 
 def phase_build():
@@ -687,11 +742,12 @@ def _to(state, dev, dtype):
                           prev=State(f(state.prev.A), f(state.prev.U)))
 
 
-def _per_step_gaps(model, dev, n, **kw):
+def _per_step_gaps(model, dev, n, keep=None, **kw):
     """n steps of the float64 CPU run; before each, the float32 card step
     from the float64 state.  Returns (per-step gaps, the free float32 run's
     gaps, f32 iterations, f64 iterations, CPU seconds), gaps as
-    max |dA| / (tol scale)."""
+    max |dA| / (tol scale); ``keep`` (a list) gets the float64 A after each
+    step."""
     from eddy_currents_3d_tpu_torch import Simulation
 
     sim32 = Simulation(model, torch.float32, device=dev, **kw)
@@ -706,6 +762,8 @@ def _per_step_gaps(model, dev, n, **kw):
         t0 = time.perf_counter()
         s64, i64 = sim64._step(s64, t)
         t_cpu += time.perf_counter() - t0
+        if keep is not None:
+            keep.append(s64.A)
         if not (i32.converged and i64.converged and if32.converged):
             raise AssertionError(f"cross-check step at t={t} did not converge")
         its32.append(int(i32.iterations))
@@ -731,8 +789,12 @@ def phase_cross_check(model, dev):
       error feeds the next step's right-hand side: on this grid the JAX
       package's own f32 run (flat-roll operator, CPU) sits 4.04 tol scale
       from its f64 run after 5 steps, so the 5-step bound of the free run
-      is twice that gap, 8 tol scale."""
-    step_ratios, ratios, its32, its64, t_cpu = _per_step_gaps(model, dev, 5)
+      is twice that gap, 8 tol scale.
+
+    Returns (the float64 A after each step, the float64 iterations)."""
+    a64 = []
+    step_ratios, ratios, its32, its64, t_cpu = _per_step_gaps(model, dev, 5,
+                                                              keep=a64)
     say(f"[6] f32 cuda vs f64 cpu, max |dA| / (tol scale): per step from the "
         f"f64 state {_fmt(step_ratios)} (limit 4); free run {_fmt(ratios)} "
         f"(limits 4 after step 1, 8 after step 5); iterations f32 {its32} "
@@ -741,6 +803,7 @@ def phase_cross_check(model, dev):
             and ratios[-1] <= 8.0):
         raise AssertionError(f"f32 cuda vs f64 cpu out of bounds: per step "
                              f"{step_ratios}, free run {ratios}")
+    return a64, its64
 
 
 def phase_scale(rec, dev):
@@ -1606,6 +1669,309 @@ def phase_bf16_scale(rec, dev):
                 for k, (t, c) in top))
 
 
+def phase_f64_card(model, dev, ref, csr):
+    """[19] float64 on the card: team7 (``model``), 5 steps graphed on the
+    flat-roll operator, against phase 6's float64 run on the CPU (``ref``:
+    its A after each step and its iterations): within F64_GAP of the scale
+    after every step, the same iterations, no hand-written kernel launched
+    (JAX leaves float64 to XLA); ms/step and ms/iteration.  Then the matrix
+    form at float64: team7's exported matrix as (8, 8) float64 blocks,
+    bsr_matvec on the card against the flat-roll float64 apply, within
+    SPMM_TOL of max(|B|·|x|)."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.assembly.stencil import State
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import bsr_matvec
+    from eddy_currents_3d_tpu_torch.ops.sparse import bsr_from_scipy
+
+    a64, its64 = ref
+    f64 = torch.float64
+    sim = Simulation(model, f64, device=dev)
+    if sim.op is not sim.system.op or sim.use_pallas:
+        raise AssertionError("float64 on the card is not on the flat-roll "
+                             "operator")
+    st = sim.init_state()
+    gaps, its = [], []
+    counts = {}
+    t0 = time.perf_counter()
+    for t, _ in sim.steps[:len(a64)]:
+        (st, info), c = counted(lambda: sim._step(st, t))
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        its.append(int(info.iterations))
+        scale = a64[len(gaps)].abs().max().item()
+        gaps.append((st.A.cpu() - a64[len(gaps)]).abs().max().item() / scale)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (_, d5), _ = counted(lambda: sim.run(num_steps=5))
+    say(f"[19] f64 on the card, team7 x {len(its)} steps (graphed, "
+        f"captures {sim.captures}): max |dA| / scale against the CPU's f64 "
+        f"run {' '.join(f'{g:.2e}' for g in gaps)} (limit {F64_GAP:g}); "
+        f"iterations card {its} cpu {its64}; a second 5-step run "
+        f"{d5['wall_s'] / 5 * 1e3:.2f} ms/step, "
+        f"{d5['wall_s'] / d5['total_iterations'] * 1e3:.3f} ms/iteration "
+        f"(the first, with its capture, {wall / len(its) * 1e3:.2f} "
+        f"ms/step); hand-written kernel launches {sum(counts.values())}")
+    if its != its64 or max(gaps) > F64_GAP or any(counts.values()):
+        raise AssertionError(f"f64 card vs cpu: gaps {gaps}, iterations "
+                             f"{its} against {its64}, launches {counts}")
+    # the matrix form at float64
+    B = bsr_from_scipy(csr, block_shape=(8, 8), dtype=f64, device=dev)
+    x, _ = _inputs(model, dev, 4)
+    x = State(x.A.double(), x.U.double())
+    cells = _u_cells(model, dev)
+    flat = lambda A, U: torch.cat([A.reshape(-1), U.reshape(-1)[cells]])
+    pad = B.shape[1] - csr.shape[0]
+    xv = torch.nn.functional.pad(flat(x.A, x.U), (0, pad))
+    n0 = counters()["bsr_spmm"].launches
+    y = bsr_matvec(B, xv)[:csr.shape[0]]
+    ref_y = sim.system.op.apply(x)
+    want = flat(ref_y.A, ref_y.U)
+    scale = _abs_bound(B, xv[:, None])
+    err = (y - want).abs().max().item()
+    say(f"[19] f64 matrix form: bsr_matvec of team7's (8, 8) float64 "
+        f"blocks against the flat-roll float64 apply: err "
+        f"{err / scale:.2e} of max(|B|·|x|) (limit "
+        f"{SPMM_TOL[f64]:g}), bsr_spmm launches "
+        f"{counters()['bsr_spmm'].launches - n0}")
+    if not err <= SPMM_TOL[f64] * scale:
+        raise AssertionError(f"f64 bsr_matvec != flat apply: {err / scale}")
+
+
+def phase_flat_f32(model, dev):
+    """[19] the float32 flat-roll tier (use_pallas=False, torch shifts) on
+    the card against the field tier (use_coded=False): step 1 within
+    4 tol scale (the f32 parity bound), 5 steps each in turns (flat,
+    field, field, flat), ms/iteration; the flat tier launches no
+    hand-written kernel."""
+    from eddy_currents_3d_tpu_torch import Simulation
+
+    sims = {"flat": Simulation(model, torch.float32, device=dev,
+                               use_pallas=False),
+            "field": Simulation(model, torch.float32, device=dev,
+                                use_coded=False)}
+    one = {k: s.run(num_steps=1)[0].A for k, s in sims.items()}
+    tol = model.solver.tolerance
+    gap = (one["flat"] - one["field"]).abs().max().item() / (
+        tol * one["field"].abs().max().item())
+    ms = {"flat": [], "field": []}
+    for name in ("flat", "field", "field", "flat"):
+        (_, diag), counts = counted(lambda: sims[name].run(num_steps=5))
+        if diag["unconverged_steps"]:
+            raise AssertionError(f"flat f32 {name}: {diag['iterations']}")
+        if name == "flat" and any(counts.values()):
+            raise AssertionError(f"the flat-roll tier launched {counts}")
+        ms[name].append(diag["wall_s"] / diag["total_iterations"] * 1e3)
+    say(f"[19] f32 flat-roll tier (use_pallas=False) against the field "
+        f"tier, team7 step 1: max |dA| / (tol scale) {gap:.3f} (limit 4); "
+        f"ms/iteration over 5 steps flat {_fmt(ms['flat'])}, field "
+        f"{_fmt(ms['field'])}")
+    if not gap <= 4.0:
+        raise AssertionError(f"flat f32 vs field f32 step 1: {gap}")
+
+
+def phase_f32coef_kernels(grids, dev):
+    """[19] field_a and field_u at bfloat16 state with float32
+    coefficients, the (float, bf16) instantiations, against their plain
+    versions on team7, the small convection case and the odd 101x101x24
+    grid, bit for bit, each launch on the scalar route and counted as a
+    float32-coefficient one; times, bytes and device µs (team7).  Returns
+    ({grid: {kernel: record}}, {kernel: device ms at team7})."""
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+
+    out = {}
+    for name, model, sysm in grids:
+        nz, ny, nx = model.shape_zyx
+        x, _ = _inputs(model, dev, 2)
+        xb = _bf16_state(x)
+        op = _field_op(sysm, torch.float32)
+        n0 = (field_a.f32_coef.launches, field_u.f32_coef.launches)
+        recs = _field_recs(op, xb, nz * ny * nx, "scalar")
+        if field_a.f32_coef.launches == n0[0] or (
+                op.box is not None and field_u.f32_coef.launches == n0[1]):
+            raise AssertionError(f"{name}: no float32-coefficient launch "
+                                 "counted")
+        _say_field_recs(19, recs, f"{name} ({nx}x{ny}x{nz}, bf16 state, "
+                        f"f32 coefficients, scalar route)", BF16_TOL)
+        out[name] = recs
+    model, sysm = grids[0][1], grids[0][2]
+    x, _ = _inputs(model, dev, 2)
+    xb = _bf16_state(x)
+    op = _field_op(sysm, torch.float32)
+    yb = field_a(op.ka, xb.A)
+    dev_ms = {"field_a_f32coef": device_ms(lambda: field_a(op.ka, xb.A),
+                                           "field_a"),
+              "field_u_f32coef": device_ms(
+                  lambda: field_u(op, xb.A, xb.U, yb), "field_u")}
+    say("[19] device us per call at team7 (torch.profiler, 20 calls): "
+        + ", ".join(f"{k} " + ("not measured" if v is None
+                                else f"{v * 1e3:.2f}")
+                    for k, v in dev_ms.items()))
+    return out, dev_ms
+
+
+def phase_f32coef_team7(model, dev, ref):
+    """[19] team7 at bfloat16 state with float32 coefficients, 5 steps:
+    every step converges, the state stays bfloat16, every field launch is
+    a bfloat16-state one with float32 coefficients; the free run's A
+    against phase 6's float64 CPU run after each step, within BF16_GAP
+    tol scale after step 1 (phase 15b's bound).  Returns the field
+    kernels' launch counts over the run."""
+    from eddy_currents_3d_tpu_torch import Simulation
+
+    a64, _ = ref
+    sim = Simulation(model, torch.bfloat16, torch.float32, device=dev,
+                     coeff_dtype=torch.float32)
+    if sim.coded_op is not None or sim.field_op.ka.dtype != torch.float32:
+        raise AssertionError("team7 bf16/f32 is not on the f32-coefficient "
+                             "field tier")
+    st, diag, counts = _bf16_run(sim, "team7 bf16 state, f32 coefficients",
+                                 num_steps=5)
+    if (counts["field_a_f32coef"], counts["field_u_f32coef"]) != (
+            counts["field_a"], counts["field_u"]):
+        raise AssertionError(f"bf16/f32: field launches not all with f32 "
+                             f"coefficients: {counts}")
+    s = sim.init_state()
+    tol = model.solver.tolerance
+    gaps = []
+    for (t, _), a in zip(sim.steps[:3], a64):
+        s, _ = sim._step(s, t)
+        gaps.append((s.A.cpu().double() - a).abs().max().item()
+                    / (tol * a.abs().max().item()))
+    say(f"[19] bf16 state with f32 coefficients vs f64 cpu free run, max "
+        f"|dA| / (tol scale): {_fmt(gaps)} after steps 1-3 (limit "
+        f"{BF16_GAP:g} after step 1)")
+    if not gaps[0] <= BF16_GAP:
+        raise AssertionError(f"bf16/f32 step 1 is {gaps[0]:.2f} tol scale "
+                             "from the f64 step 1")
+    return counts
+
+
+def _slabs(system, n, dev):
+    """The per-slab operators of ``system`` cut into ``n`` z slabs, in one
+    process: each slab's :class:`Mesh` names its neighbours by slab index
+    and no process group exists (the ghosts are handed over locally)."""
+    from eddy_currents_3d_tpu_torch.parallel.mesh import Mesh
+    from eddy_currents_3d_tpu_torch.parallel.shard_op import (
+        ShardedStencilOperator)
+
+    return [ShardedStencilOperator(system, Mesh(
+        n_z=n, index=i, device=dev, lo=i - 1 if i > 0 else None,
+        hi=i + 1 if i + 1 < n else None), torch.float32) for i in range(n)]
+
+
+def _slab_apply(sops, x):
+    """The sharded apply of ``x`` (global) over ``sops``, each slab's
+    ghosts taken straight from its neighbours' messages; the global (yA,
+    yU)."""
+    xs = [s.pad_state(x) for s in sops]
+    ys = [s.local_apply(xi) for s, xi in zip(sops, xs)]
+    for i, (s, (yA, yU)) in enumerate(zip(sops, ys)):
+        ghosts = {}
+        if i > 0:
+            ghosts["lo"] = sops[i - 1].message(xs[i - 1], "hi")
+        if i + 1 < len(sops):
+            ghosts["hi"] = sops[i + 1].message(xs[i + 1], "lo")
+        s.fold(yA, yU, ghosts)
+    nz = sops[0].shape_zyx[0]
+    return (torch.cat([y[0] for y in ys], dim=1)[:, :nz],
+            torch.cat([y[1] for y in ys], dim=0)[:nz])
+
+
+def phase_slab_kernels(recs, dev):
+    """[19] the per-shard field kernels with their ghost corrections, in
+    one process: team7 and 256x256x64 cut into 2 and 4 z slabs, each
+    slab's field_a and field_u launched on its own slab and its neighbours'
+    ghost planes folded in (the exchange swapped for a local hand-over),
+    against the global field kernels on the same input: within SLAB_TOL of
+    the output scale (the same float32 products, summed in another order
+    at the slab faces)."""
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+
+    for name in ("team7", "scale256"):
+        model, system = recs[name]["model"], recs[name]["system"]
+        x, _ = _inputs(model, dev, 6)
+        op = _field_op(system, torch.float32)
+        ref = op.apply(x)
+        scale = ref.A.abs().max().item()
+        uscale = max(ref.U.abs().max().item(), scale)
+        for n in (2, 4):
+            sops = _slabs(system, n, dev)
+            na, nu = field_a.launches, field_u.launches
+            yA, yU = _slab_apply(sops, x)
+            torch.cuda.synchronize()
+            if (field_a.launches - na, field_u.launches - nu) != (n, n):
+                raise AssertionError(f"{name} / {n}: field launches "
+                                     f"{field_a.launches - na}, "
+                                     f"{field_u.launches - nu}")
+            err = max((yA - ref.A).abs().max().item() / scale,
+                      (yU - ref.U).abs().max().item() / uscale)
+            ms = cuda_ms(lambda: _slab_apply(sops, x), 10)
+            say(f"[19] {name} in {n} z slabs of {sops[0].NZl} planes "
+                f"(padded {sops[0].padded_zyx}): per-slab field_a + field_u "
+                f"with ghost corrections against the global kernels: err "
+                f"{err:.2e} of scale (limit {SLAB_TOL:g}); {ms * 1e3:.1f} "
+                f"us per sharded apply in one process (slab copies and "
+                f"messages included), global apply "
+                f"{cuda_ms(lambda: op.apply(x), 10) * 1e3:.1f} us")
+            if not err <= SLAB_TOL:
+                raise AssertionError(f"{name} in {n} slabs: {err:.3e}")
+
+
+def phase_mesh_nccl(model, dev):
+    """[19] a mesh of one rank over NCCL: Simulation(mesh=make_mesh(1)) at
+    team7, float32, graphed, 5 steps under set_sync_debug_mode("error"),
+    against the unsharded use_coded=False run: bit for bit (the slab is the
+    whole grid); the all-reduce of the dots is called while the solve is
+    captured and never again (its Python calls stop), and the iterations
+    are F32_FIELD_ITERS' first 5.  ms/iteration of each, at world size 1."""
+    import torch.distributed as dist
+
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1)
+            calls = []
+            real = mesh.all_reduce
+            object.__setattr__(mesh, "all_reduce",
+                               lambda t: calls.append(1) or real(t))
+            sim = Simulation(model, torch.float32, mesh=mesh)
+            ref = Simulation(model, torch.float32, device=dev,
+                             use_coded=False)
+            sim.run(num_steps=1)
+            ref.run(num_steps=1)
+            n_cap = len(calls)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                (st, d), counts = counted(lambda: sim.run(num_steps=5))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sr, dr = ref.run(num_steps=5)
+            st2, d2 = sim.run(num_steps=5)
+        finally:
+            dist.destroy_process_group()
+    ms = [x["wall_s"] / x["total_iterations"] * 1e3 for x in (d, dr, d2)]
+    say(f"[19] mesh of 1 rank over NCCL, team7 f32 x 5 steps: iterations "
+        f"{d['iterations']} (unsharded {dr['iterations']}), A and carry "
+        f"equal bit for bit: {torch.equal(st.A, sr.A)}, "
+        f"{torch.equal(st.carry, sr.carry)}; captures {sim.captures}; "
+        f"all-reduce calls {n_cap} by the first step's capture, "
+        f"{len(calls) - n_cap} after; no sync flagged; ms/iteration at "
+        f"world size 1: mesh {ms[0]:.3f}, {ms[2]:.3f}, unsharded "
+        f"{ms[1]:.3f}; launches {counts}")
+    if not (torch.equal(st.A, sr.A) and torch.equal(st.carry, sr.carry)
+            and d["iterations"] == dr["iterations"]
+            == F32_FIELD_ITERS[:5] and sim.captures == 1
+            and n_cap > 0 and len(calls) == n_cap
+            and counts["field_a"] >= 2 * d["total_iterations"]):
+        raise AssertionError("the mesh of one rank differs from the "
+                             "unsharded field run")
+
+
 def phase_device_times(recs, dev):
     """Device µs per call (torch.profiler, 20 calls) of the kernels other
     than bsr_spmm at the shapes their JSON records use (team7 for the field
@@ -2188,7 +2554,7 @@ def main() -> int:
     recs = phase_kernel_vs_plain(grids, dev)
     split_recs = phase_split_vs_plain([grids[2], grids[1]], dev)
     model, matvec_launches = phase_main_path(dev)
-    phase_cross_check(model, dev)
+    f64_ref = phase_cross_check(model, dev)
     split_counts = phase_scale(recs["scale256"], dev)
     phase_precond(model, dev)
     phase_graph(recs, model, dev)
@@ -2216,7 +2582,12 @@ def main() -> int:
         f"{bf16_lib}")
     bf16_counts = phase_bf16_team7(model, dev)
     phase_bf16_scale(recs["scale256"], dev)
+    odd = load_case(case_static(shape_xyz=(101, 101, 24), steps=3))
+    f32c_recs, f32c_dev = phase_f32coef_kernels(
+        field_grids[:2] + [("odd", odd, assemble_operator(
+            odd, torch.float32, dev))], dev)
     dev_times = phase_device_times(recs, dev)
+    dev_times.update(f32c_dev)
     phase_march_details(recs, logs,
                         split_recs["scale256"]["launches_per_apply_dots"], dev)
     phase_field_details(logs, dev)
@@ -2226,9 +2597,17 @@ def main() -> int:
     say(f"[16] library yardstick of the split pair at 256x256x64: its CSR "
         f"(to_csr {t_csr256:.2f} s on the host) as torch.sparse_csr_tensor "
         f"@ x {csr256_ms * 1e3:.2f} us")
-    # last, after every profiled phase: with it before them, later traces
+    # after every profiled phase: with it before them, later traces
     # dropped kernels' events (not measured; cause not found)
     phase_cli(dev)
+    # phase 19, which profiles nothing: float64 and the float32 flat-roll
+    # tier on the card, bfloat16 state with float32 coefficients, the
+    # per-slab kernels and a mesh of one rank over NCCL
+    phase_f64_card(model, dev, f64_ref, csr)
+    phase_flat_f32(model, dev)
+    f32c_counts = phase_f32coef_team7(model, dev, f64_ref)
+    phase_slab_kernels(recs, dev)
+    phase_mesh_nccl(model, dev)
 
     # bytes each function must move (inputs read once, outputs written
     # once) and its FP32 operations, at the shapes of its record
@@ -2241,6 +2620,7 @@ def main() -> int:
     own = nz * ny * nx - slab
     f7 = field_recs[("team7", "f32")]
     b7 = bf16_recs[("team7", "paired")]
+    fc7 = f32c_recs["team7"]
     box7 = t7["system"].op.box
     nbox7 = (box7[1] - box7[0]) * (box7[3] - box7[2]) * (box7[5] - box7[4])
     zc0, zc1 = t7["op"].cond_z
@@ -2260,6 +2640,8 @@ def main() -> int:
         "field_u": bound(f7["field_u"]["bytes"], 2 * 31 * nbox7),
         "field_a_bf16": bound(b7["field_a"]["bytes"], 2 * 21 * n7),
         "field_u_bf16": bound(b7["field_u"]["bytes"], 2 * 31 * nbox7),
+        "field_a_f32coef": bound(fc7["field_a"]["bytes"], 2 * 21 * n7),
+        "field_u_f32coef": bound(fc7["field_u"]["bytes"], 2 * 31 * nbox7),
     }
 
     def record(name, launches, rec, mode=None, library_ms=None, **extra):
@@ -2302,6 +2684,16 @@ def main() -> int:
             library_ms=bf16_lib_ms, kernel_route="paired",
             launches_by_route={r: bf16_counts[f"{name}_{r}"]
                                for r in FIELD_ROUTES}))
+    # bfloat16 state with float32 coefficients: the scalar (float, bf16)
+    # kernels, the largest error over phase 19's grids, the launches of
+    # phase 19's 5-step team7 run, and the f32 CSR @ x yardstick
+    for name in ("field_a", "field_u"):
+        rec = dict(fc7[name])
+        rec["max_abs_err"] = max(r[name]["max_abs_err"]
+                                 for r in f32c_recs.values() if name in r)
+        kernels.append(record(
+            f"{name}_f32coef", f32c_counts[f"{name}_f32coef"], rec,
+            library_ms=bsr_recs["csr_ms"], kernel_route="scalar"))
     for k in kernels:
         d = dev_times[k["name"]]
         say(f"[16] {k['name']}: events {k['ms'] * 1e3:.2f} us, device "

@@ -18,9 +18,12 @@ CSR/COO/ELL/BSR containers, with a hand-written block-sparse SpMM kernel
 with no host read), under ``Simulation.run`` and ``run_scan``, with
 checkpoints in the JAX package's format (``sim/checkpoint.py``) and VTK
 through an overlapped writer and a native encoder (``io/native.py``,
-``csrc/ecio.cpp``).  ``python -m eddy_currents_3d_tpu_torch in.vxc`` is the
-JAX package's CLI on the card (``__main__.py``).  This package never
-imports jax.
+``csrc/ecio.cpp``).  float64 (and ``use_pallas=False``) runs the
+flat-roll operator of torch shifts, on the card too.  The z-slab
+multi-device tier (``parallel/``) runs one process per card over
+``torch.distributed`` (``Simulation(mesh=make_mesh(n))``).
+``python -m eddy_currents_3d_tpu_torch in.vxc`` is the JAX package's CLI on
+the card (``__main__.py``).  This package never imports jax.
 """
 
 __version__ = "0.1.0"

@@ -9,10 +9,11 @@ output directory from the case's ``SOLVER DIR`` line (``vxc2data.f90:74``
 default ``out``), parsed-parameter and matrix-stats prints, the 1% ``>``
 progress ticker, and the final ``Tcalc`` wall-time print — plus dtype,
 preconditioning and checkpoint/resume behind flags.  It runs on the CUDA
-card unless ``--device`` names another device (``--device cpu``); float64
-runs on the CPU only, float32 coefficients (``--coeff-dtype f32``) at
-bfloat16 state and the multi-device tier (``--mesh``) are not ported yet:
-each is refused with exit code 2.
+card unless ``--device`` names another device (``--device cpu``), at
+every ``--dtype`` (float64 on the flat-roll operator) and
+``--coeff-dtype``.  The multi-device tier's ``--mesh`` is not ported to the
+CLI yet and is refused with exit code 2 (``Simulation(mesh=...)`` runs it
+from Python).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="f32",
                    choices=["f32", "float32", "bf16", "bfloat16", "f64",
                             "float64"],
-                   help="field dtype (default f32; f64 runs on the CPU only)")
+                   help="field dtype (default f32; f64 runs the flat-roll operator)")
     p.add_argument("--dot-dtype", default=None,
                    choices=[None, "f32", "f64"],
                    help="accumulate solver dot products in this dtype")
@@ -118,12 +119,6 @@ def main(argv=None) -> int:
         return _error("--mesh: the multi-device tier is not ported to "
                       "eddy_currents_3d_tpu_torch yet (ROADMAP.md); run on "
                       "one device, or use python -m eddy_currents_3d_tpu")
-    if (args.dtype in ("bf16", "bfloat16")
-            and args.coeff_dtype in ("f32", "float32")):
-        return _error("--coeff-dtype f32 with --dtype bf16 is not ported: "
-                      "the field kernels take bfloat16 coefficients at "
-                      "bfloat16 state; drop --coeff-dtype, or use "
-                      "python -m eddy_currents_3d_tpu")
 
     import time
 
@@ -133,10 +128,6 @@ def main(argv=None) -> int:
     from .sim.simulate import Simulation
     from .utils.device import resolve_device
 
-    if args.dtype in ("f64", "float64") and (
-            args.device is None or torch.device(args.device).type != "cpu"):
-        return _error("--dtype f64 runs on the CPU only (the CUDA kernels "
-                      "take float32 or bfloat16 state); pass --device cpu")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

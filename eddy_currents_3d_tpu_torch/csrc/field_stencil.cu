@@ -16,10 +16,14 @@
 //     runs after field_a on the same stream) and uout written to the box
 //     of yU, which the wrapper zeroes beforehand.
 // Both are templated on the coefficient type and on the state type, and
-// built for (float, float), (__nv_bfloat16, float) and (__nv_bfloat16,
-// __nv_bfloat16): bfloat16 state comes with bfloat16 coefficients, as
-// every bfloat16 system, multigrid level and ILU(0) factor of the port
-// carries them.  Every coefficient and state value is loaded and
+// built for (float, float), (__nv_bfloat16, float), (__nv_bfloat16,
+// __nv_bfloat16) and (float, __nv_bfloat16): bfloat16 state mostly comes
+// with bfloat16 coefficients, as every bfloat16 system, multigrid level
+// and ILU(0) factor of the port carries them, and with float32 ones under
+// coeff_dtype=float32 (the JAX package's _a_kernel and _u_kernel at f32
+// coefficients and bf16 state: each product an f32 coefficient times a
+// bf16 value widened to f32, f32 sums, one rounding at the store).  Every
+// coefficient and state value is loaded and
 // converted to float, every product accumulated in float, and each output
 // rounded once to the state type at the store.  The JAX kernels at
 // bfloat16 state round every operation in bfloat16; the plain versions
@@ -58,8 +62,11 @@
 // So bfloat16 state has a second route, field_a_pairs and field_u_pairs
 // below: two cells a thread as 4-byte words, consecutive pairs of a plane
 // a CTA, runs of planes marched with the z neighbours in registers, the
-// same sums bit for bit.  The one-cell kernels stay for odd widths and
-// unaligned tensors (ops/field_cuda.py pair_route).
+// same sums bit for bit.  The one-cell kernels stay for odd widths,
+// unaligned tensors and float32 coefficients at bfloat16 state
+// (ops/field_cuda.py pair_route): that instantiation moves 40 B a cell for
+// field_a at L = 3 (28 of coefficients, 6 read, 6 written) and 146 B a box
+// cell for field_u (124 + 22), and is the one-cell kernel, unpaired.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -641,16 +648,20 @@ extern "C" {
 
 // y (L, nz, ny, nx) = the 7-point stencil ka (7, nz, ny, nx) applied to
 // each of A's L fields.  coef_bf16: ka is __nv_bfloat16, else float;
-// state_bf16: A and y are __nv_bfloat16 (and so is ka), else float.
+// state_bf16: A and y are __nv_bfloat16, else float (bfloat16 state with
+// float coefficients is the (float, bf16) instantiation).
 // Returns cudaGetLastError() after the launch.
 int field_a_launch(const void* ka, int coef_bf16, int state_bf16,
                    const void* A, void* y, int L, int nx, int ny, int nz,
                    void* stream) {
-  if (L <= 0 || nx <= 0 || ny <= 0 || nz <= 0 || (state_bf16 && !coef_bf16)) {
+  if (L <= 0 || nx <= 0 || ny <= 0 || nz <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
-  if (state_bf16) return launch_a<bf16, bf16>(ka, A, y, L, nx, ny, nz, st);
+  if (state_bf16) {
+    return coef_bf16 ? launch_a<bf16, bf16>(ka, A, y, L, nx, ny, nz, st)
+                     : launch_a<float, bf16>(ka, A, y, L, nx, ny, nz, st);
+  }
   return coef_bf16 ? launch_a<bf16, float>(ka, A, y, L, nx, ny, nz, st)
                    : launch_a<float, float>(ka, A, y, L, nx, ny, nz, st);
 }
@@ -665,14 +676,16 @@ int field_u_launch(const void* gu, const void* ku, const void* da,
                    int z0, int y0, int x0, int bz, int by, int bx,
                    void* stream) {
   if (bz <= 0 || by <= 0 || bx <= 0 || z0 < 0 || y0 < 0 || x0 < 0 ||
-      z0 + bz > nz || y0 + by > ny || x0 + bx > nx ||
-      (state_bf16 && !coef_bf16)) {
+      z0 + bz > nz || y0 + by > ny || x0 + bx > nx) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Box b{z0, y0, x0, bz, by, bx};
   auto st = static_cast<cudaStream_t>(stream);
   if (state_bf16) {
-    return launch_u<bf16, bf16>(gu, ku, da, A, U, yA, yU, nx, ny, nz, b, st);
+    return coef_bf16 ? launch_u<bf16, bf16>(gu, ku, da, A, U, yA, yU, nx, ny,
+                                            nz, b, st)
+                     : launch_u<float, bf16>(gu, ku, da, A, U, yA, yU, nx,
+                                             ny, nz, b, st);
   }
   return coef_bf16
              ? launch_u<bf16, float>(gu, ku, da, A, U, yA, yU, nx, ny, nz, b,
@@ -719,8 +732,9 @@ int field_u_pairs_launch(const void* gu, const void* ku, const void* da,
 // per SM and local memory per thread in bytes at the threads a CTA it is
 // launched with, and those threads.  which: 0-2 field_a_kernel <float,
 // float>, <bf16, float>, <bf16, bf16>; 3-5 field_u_kernel in the same
-// order; 6, 7 field_a_pairs<3>, <1>; 8, 9 field_u_pairs<kEven>, <kOdd>.
-// Returns a CUDA error code.
+// order; 6, 7 field_a_pairs<3>, <1>; 8, 9 field_u_pairs<kEven>, <kOdd>;
+// 10, 11 field_a_kernel and field_u_kernel <float, bf16>.  Returns a CUDA
+// error code.
 int field_info(int which, int* out) {
   constexpr int kScalar = kTX * kTY;
   switch (which) {
@@ -734,6 +748,8 @@ int field_info(int which, int* out) {
     case 7: return info_of(field_a_pairs<1>, kPairThreads, out);
     case 8: return info_of(field_u_pairs<kEven>, kPairThreads, out);
     case 9: return info_of(field_u_pairs<kOdd>, kPairThreads, out);
+    case 10: return info_of(field_a_kernel<float, bf16>, kScalar, out);
+    case 11: return info_of(field_u_kernel<float, bf16>, kScalar, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,10 +2,10 @@
 
 The kernels (``csrc/field_stencil.cu``) replace the TPU kernels
 ``_a_kernel`` and ``_u_kernel`` (``eddy_currents_3d_tpu/ops/pallas_stencil.py:136``,
-``:206``), each with its single-tile twin.  Both take float32 fields (the
-state) with float32 or bfloat16 coefficients, or bfloat16 fields with
-bfloat16 coefficients, sum in float32 and round once to the state's dtype,
-and are bound by device-memory bytes (see the source note).
+``:206``), each with its single-tile twin.  Both take float32 or bfloat16
+fields (the state) with float32 or bfloat16 coefficients, sum in float32
+and round once to the state's dtype, and are bound by device-memory bytes
+(see the source note).
 
 * :data:`field_a` applies a 7-point coefficient field ``ka`` to every
   leading field of ``A``: the operator's three A components, and every
@@ -17,21 +17,25 @@ and are bound by device-memory bytes (see the source note).
 A CPU tensor goes to the plain torch version (:func:`~.field.field_a_reference`,
 :func:`~.field.field_u_reference`); a CUDA tensor launches a kernel or
 raises: a bfloat16 tensor launches a bfloat16-state kernel, never an upcast
-around the float32 one.  At bfloat16 state two hand-written kernels compute
-the same outputs bit for bit, and :func:`pair_route` picks one from the
-shape, the box and the tensors' alignment:
+around the float32 one.  At bfloat16 state with bfloat16 coefficients two
+hand-written kernels compute the same outputs bit for bit, and
+:func:`pair_route` picks one from the shape, the box and the tensors'
+alignment:
 
 * ``"paired"``: two cells along x a thread, read and written as 4-byte
   words, marching runs of planes with the z neighbours in registers
   (``field_a_pairs``, ``field_u_pairs``), where the width is even;
 * ``"scalar"``: one cell a thread (the bfloat16 instantiation of the
   float32-state kernels), for every other shape: odd widths such as the
-  V-cycle's coarse levels, unaligned views.
+  V-cycle's coarse levels, unaligned views.  float32 coefficients at
+  bfloat16 state (``coeff_dtype=torch.float32``) always take it: the paired
+  kernels read bfloat16 coefficient words.
 
 Each wrapper's ``launches`` counts its kernels' launches, and only those;
-``bf16_state.launches`` counts the bfloat16-state launches among them, and
+``bf16_state.launches`` counts the bfloat16-state launches among them,
 ``paired.launches`` and ``scalar.launches`` each route's, which add up to
-``bf16_state.launches``.
+``bf16_state.launches``, and ``f32_coef.launches`` those of the
+bfloat16-state launches that took float32 coefficients (all scalar).
 """
 
 from __future__ import annotations
@@ -52,17 +56,19 @@ _ROUTES = ("paired", "scalar")
 
 
 def pair_route(shape_zyx, box=None, aligned: bool = True,
-               fields: int = 3) -> str:
+               fields: int = 3, coef_bf16: bool = True) -> str:
     """The route of a bfloat16-state launch over a grid of ``shape_zyx``
-    (nz, ny, nx) with ``fields`` state fields: ``"paired"`` where every
-    tensor is 4-byte aligned (``aligned``, :func:`aligned4`), every index
-    fits 32 bits and pairs of cells along x fill whole words: nx even for
-    ``field_a`` (``box`` None), nx and the box's width even for ``field_u``
-    over ``box`` (z0, z1, y0, y1, x0, x1); ``"scalar"`` otherwise."""
+    (nz, ny, nx) with ``fields`` state fields: ``"paired"`` where the
+    coefficients are bfloat16 (``coef_bf16``), every tensor is 4-byte
+    aligned (``aligned``, :func:`aligned4`), every index fits 32 bits and
+    pairs of cells along x fill whole words: nx even for ``field_a``
+    (``box`` None), nx and the box's width even for ``field_u`` over
+    ``box`` (z0, z1, y0, y1, x0, x1); ``"scalar"`` otherwise."""
     nz, ny, nx = shape_zyx
     even = nx % 2 == 0 and (box is None or (box[5] - box[4]) % 2 == 0)
     fits = max(fields, 15) * nz * ny * nx < 2 ** 31
-    return "paired" if even and aligned and fits else "scalar"
+    return ("paired" if coef_bf16 and even and aligned and fits
+            else "scalar")
 
 
 def aligned4(*tensors) -> bool:
@@ -82,8 +88,9 @@ def _chosen(asked, choice):
         raise ValueError(f"route must be one of {_ROUTES} or None, got "
                          f"{asked!r}")
     if asked == "paired" and choice != "paired":
-        raise ValueError("the paired route needs an even width, 4-byte "
-                         "aligned tensors and 32-bit indices")
+        raise ValueError("the paired route needs bfloat16 coefficients, an "
+                         "even width, 4-byte aligned tensors and 32-bit "
+                         "indices")
     return asked
 
 
@@ -96,14 +103,9 @@ def _is_bf16(name, t):
 
 
 def _flags(coef_name, coef, state_name, state):
-    """(coef_bf16, state_bf16) of a kernel's coefficient and state tensors;
-    bfloat16 state takes bfloat16 coefficients only."""
-    coef_bf16, state_bf16 = _is_bf16(coef_name, coef), _is_bf16(state_name,
-                                                                  state)
-    if state_bf16 and not coef_bf16:
-        raise ValueError(f"bfloat16 {state_name} needs bfloat16 {coef_name} "
-                         f"on CUDA, got {coef.dtype}")
-    return coef_bf16, state_bf16
+    """(coef_bf16, state_bf16) of a kernel's coefficient and state
+    tensors, each float32 or bfloat16."""
+    return _is_bf16(coef_name, coef), _is_bf16(state_name, state)
 
 
 def _shares_memory(a, b):
@@ -131,6 +133,8 @@ KERNEL_NAMES = {
     "field_a_pairs<1>": "field_a_pairsILi1E",
     "field_u_pairs<kEven>": "field_u_pairsILi0E",
     "field_u_pairs<kOdd>": "field_u_pairsILi1E",
+    "field_a_kernel<float, bf16>": "field_a_kernelIf13__nv_bfloat16E",
+    "field_u_kernel<float, bf16>": "field_u_kernelIf13__nv_bfloat16E",
 }
 
 
@@ -142,6 +146,7 @@ class _FieldKernel(CudaKernel):
         self.bf16_state = _Count()
         self.paired = _Count()
         self.scalar = _Count()
+        self.f32_coef = _Count()
 
     def _bind(self, lib):
         vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -157,11 +162,13 @@ class _FieldKernel(CudaKernel):
         lib.field_info.argtypes = [ci, ctypes.POINTER(ctypes.c_int)]
         lib.field_info.restype = ci
 
-    def _counted(self, err, state_bf16, route):
+    def _counted(self, err, state_bf16, route, coef_bf16):
         self._raise_on(err)
         if state_bf16:
             self.bf16_state.launches += 1
             getattr(self, route).launches += 1
+            if not coef_bf16:
+                self.f32_coef.launches += 1
 
     def info(self, kernel: str, dev=None):
         """{registers, resident CTAs per SM, local bytes per thread, threads}
@@ -201,7 +208,7 @@ class _FieldA(_FieldKernel):
         y = torch.empty_like(A)
         if state_bf16:
             route = _chosen(route, pair_route((nz, ny, nx), None,
-                                              aligned4(ka, A), L))
+                                              aligned4(ka, A), L, coef_bf16))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             if route == "paired":
@@ -211,7 +218,7 @@ class _FieldA(_FieldKernel):
                 err = lib.field_a_launch(ptr(ka), coef_bf16, state_bf16,
                                          ptr(A), ptr(y), L, nx, ny, nz,
                                          stream)
-        self._counted(err, state_bf16, route)
+        self._counted(err, state_bf16, route, coef_bf16)
         return y
 
 
@@ -253,7 +260,8 @@ class _FieldU(_FieldKernel):
         if state_bf16:
             route = _chosen(route, pair_route(
                 (nz, ny, nx), op.box,
-                aligned4(op.gu, op.ku, op.da, A, U, yA)))
+                aligned4(op.gu, op.ku, op.da, A, U, yA),
+                coef_bf16=coef_bf16))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             if route == "paired":
@@ -265,7 +273,7 @@ class _FieldU(_FieldKernel):
                     ptr(op.gu), ptr(op.ku), ptr(op.da), coef_bf16,
                     state_bf16, ptr(A), ptr(U), ptr(yA), ptr(yU), nx, ny, nz,
                     z0, y0, x0, *box, stream)
-        self._counted(err, state_bf16, route)
+        self._counted(err, state_bf16, route, coef_bf16)
         return yU
 
 

@@ -27,9 +27,17 @@ hand-written kernels and on the CPU through their plain torch versions:
   field kernels (the coded tier is float32 only, and ``use_coded=True``
   raises).
 
-float64 runs the flat-roll :class:`StencilOperator`, on the CPU only.  The
-solve is BiCGSTABwr, unpreconditioned or right-preconditioned with Jacobi,
-Chebyshev, Chebyshev on Jacobi, the multigrid V-cycle or ILU(0), as in the
+float64 runs the flat-roll :class:`StencilOperator` (torch shifts), on the
+card as on the CPU, as the JAX package runs its jnp operator at float64;
+``use_pallas=False`` (the JAX package's keyword: off, the hand-written
+kernels are not used) runs the same flat-roll tier at float32 or bfloat16.
+On a mesh (``parallel/mesh.py`` ``make_mesh``: one process per card over
+``torch.distributed``, z slabs) the operator is the sharded field tier
+(``parallel/shard_op.py``), every field is the rank's slab, the dots are
+all-reduced inside the solve, and ``run``/``run_scan`` return the global
+fields.  The solve is BiCGSTABwr, unpreconditioned or right-preconditioned
+with Jacobi, Chebyshev, Chebyshev on Jacobi, the multigrid V-cycle or
+ILU(0), as in the
 JAX package, its reductions in ``dot_dtype`` (None: the state's dtype);
 the coded operator's fused dots serve only ``dot_dtype=None``, as in JAX.
 ILU(0) (``solvers/ilu0.py``) factors the exported CSR on the host once and
@@ -72,6 +80,7 @@ from ..io import native, vtk
 from ..models.model import Model
 from ..ops.coded import CodedUnsupported, from_assembled_coded
 from ..ops.field import FieldStencilOperator
+from ..parallel.shard_op import ShardedStencilOperator
 from ..solvers.bicgstab import DeviceLoop
 from ..solvers.chebyshev import chebyshev_preconditioner
 from ..solvers.ilu0 import ilu0_stencil_factorize
@@ -212,6 +221,17 @@ class _AsyncVtkWriter:
             raise self._err
 
 
+def _fields(state: SimState, f) -> SimState:
+    """``state`` with ``f`` applied to each of its fields (not the host
+    motion); ``state`` itself where ``f`` is None."""
+    if f is None:
+        return state
+    return state._replace(
+        A=f(state.A), U=f(state.U), carry=f(state.carry),
+        prev=(State(f(state.prev.A), f(state.prev.U))
+              if state.prev is not None else None))
+
+
 def _schedule(tran):
     """Step times + output points with the reference's exact bookkeeping
     (EC3D.f90:137-143, 436-455)."""
@@ -235,7 +255,15 @@ def _schedule(tran):
 
 class Simulation:
     """End-to-end simulation of a :class:`Model` on ``device`` (None: the
-    current CUDA device, and a ``RuntimeError`` without one)."""
+    current CUDA device, and a ``RuntimeError`` without one), or, with
+    ``mesh`` (:func:`~..parallel.mesh.make_mesh`), on this rank's z slab of
+    a mesh, on the mesh's device.
+
+    ``use_pallas`` is the JAX package's keyword for the hand-written
+    kernels (None: on at float32 and bfloat16, off at float64): off, the
+    operator is the flat-roll tier of torch shifts, on any device.
+    ``use_shard_map`` (None: on unless ``precond="mg"``) must be on with a
+    mesh: the JAX package's GSPMD tier is not ported."""
 
     def __init__(
         self,
@@ -244,14 +272,22 @@ class Simulation:
         dot_dtype: Optional[torch.dtype] = None,
         *,
         device=None,
+        mesh=None,
         system: Optional[AssembledSystem] = None,
+        use_pallas: Optional[bool] = None,
         precond: Optional[str] = None,
         cheb_order: int = 4,
         cheb_ratio: float = 30.0,
+        use_shard_map: Optional[bool] = None,
+        coeff_dtype: Optional[torch.dtype] = None,
         warm_start: str = "extrapolate",
         use_coded: Optional[bool] = None,
-        coeff_dtype: Optional[torch.dtype] = None,
     ):
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device={device} but this rank's mesh "
+                                 f"device is {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # "cuda" names torch's current CUDA device
@@ -261,35 +297,57 @@ class Simulation:
         if dtype not in (torch.float32, torch.bfloat16, torch.float64):
             raise ValueError(f"dtype must be float32, bfloat16 or float64, "
                              f"got {dtype}")
-        if self.device.type == "cuda" and dtype == torch.float64:
-            raise ValueError(
-                f"dtype={dtype} is not ported to CUDA: the CUDA kernels take "
-                "float32 or bfloat16 state (run float64 with device='cpu')")
         if dot_dtype not in (None, torch.float32, torch.float64):
             raise ValueError(f"dot_dtype must be None, float32 or float64, "
                              f"got {dot_dtype}")
         if coeff_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"coeff_dtype must be None, torch.float32 or "
                              f"torch.bfloat16, got {coeff_dtype}")
-        if dtype == torch.bfloat16 and coeff_dtype == torch.float32:
-            raise ValueError(
-                "coeff_dtype=torch.float32 with bfloat16 state is not "
-                "ported: the field kernels take bfloat16 coefficients at "
-                "bfloat16 state")
         if precond not in (None, "cheb", "jacobi", "cheb_jacobi", "mg",
                            "ilu0"):
             raise ValueError(f"unknown preconditioner {precond!r}")
         if warm_start not in ("extrapolate", "previous"):
             raise ValueError(f"unknown warm_start {warm_start!r}")
+        # the hand-written kernels for 2- and 4-byte dtypes (JAX
+        # simulate.py:234-238); they take no float64
+        no_pallas = use_pallas is False          # the caller's own choice
+        if use_pallas is None:
+            use_pallas = dtype.itemsize <= 4
+        if use_pallas and dtype == torch.float64:
+            raise ValueError("use_pallas=True needs float32 or bfloat16 "
+                             "state: the hand-written kernels take no "
+                             "float64")
+        self.use_pallas = bool(use_pallas)
+        if mesh is not None:
+            if use_shard_map is None:
+                use_shard_map = precond != "mg"
+            if not use_shard_map:
+                why = ("precond='mg'" if precond == "mg"
+                       else "use_shard_map=False")
+                raise ValueError(
+                    f"{why} on a mesh takes the JAX package's GSPMD tier, "
+                    "which is not ported; the port's mesh runs the "
+                    "per-shard field kernels (use_shard_map=True, no 'mg')")
+            if precond == "ilu0":
+                raise ValueError("precond='ilu0' is single-device only")
+            if use_coded:
+                raise ValueError(
+                    "use_coded=True on a mesh is not ported: the mesh runs "
+                    "the per-shard field kernels, not per-shard coded ones")
+        self.mesh = mesh
         self.model = model
         self.dtype = dtype
         self.dot_dtype = dot_dtype
         self.warm_start = warm_start
-        self.system = (system if system is not None
-                       else assemble_operator(model, dtype, self.device))
-        if self.system.device != self.device:
-            raise ValueError(f"system is on {self.system.device}, "
+        if system is None:
+            # a mesh reads the host copies and cuts its own slabs: the
+            # whole system stays on the CPU
+            system = assemble_operator(
+                model, dtype, "cpu" if mesh is not None else self.device)
+        elif mesh is None and system.device != self.device:
+            raise ValueError(f"system is on {system.device}, "
                              f"simulation on {self.device}")
+        self.system = system
         if coeff_dtype is not None and coeff_dtype != self.system.op.dtype:
             # mixed precision: coefficient streams in coeff_dtype, state
             # and accumulation in dtype; the solved operator is A rounded
@@ -299,15 +357,18 @@ class Simulation:
                 self.system, op=self.system.op.astype(coeff_dtype))
         self.coeff_dtype = coeff_dtype
 
-        # tier choice (JAX simulate.py:230-309, single device): the coded
-        # operator where it applies; the field tier for every other float32
-        # or bfloat16 run, any coeff_dtype included (JAX :252-253).
-        # use_coded=None routes CodedUnsupported to the field tier; an
-        # explicit use_coded=True never degrades.
-        coded_ok = (dtype == torch.float32 and coeff_dtype is None
-                    and precond != "mg")
+        # tier choice (JAX simulate.py:230-309): the coded operator where it
+        # applies; the field tier for every other float32 or bfloat16 run,
+        # any coeff_dtype included (JAX :252-253); the flat-roll operator
+        # without the kernels (float64, use_pallas=False); on a mesh the
+        # sharded field tier.  use_coded=None routes CodedUnsupported to
+        # the field tier; an explicit use_coded=True never degrades.
+        coded_ok = (self.use_pallas and dtype == torch.float32
+                    and coeff_dtype is None and precond != "mg"
+                    and mesh is None)
         if use_coded and not coded_ok:
-            why = (f"coeff_dtype={coeff_dtype}" if coeff_dtype is not None
+            why = ("use_pallas=False" if no_pallas
+                   else f"coeff_dtype={coeff_dtype}" if coeff_dtype is not None
                    else "precond='mg'" if precond == "mg"
                    else f"dtype={dtype}")
             raise ValueError(
@@ -325,12 +386,27 @@ class Simulation:
                 if use_coded:
                     raise
         self.field_op = (FieldStencilOperator.from_assembled(self.system)
-                         if dtype != torch.float64 and self.coded_op is None
-                         else None)
-        # the solver-space tier (None: float64's flat-roll operator)
+                         if self.use_pallas and self.coded_op is None
+                         and mesh is None else None)
+        self.shard_op = (ShardedStencilOperator(
+            self.system, mesh, dtype, use_pallas=self.use_pallas,
+            coeff_dtype=coeff_dtype) if mesh is not None else None)
+        # the single-device solver-space tier (None: the flat-roll operator,
+        # and the mesh, whose fields are slabs throughout)
         self._tier = (self.coded_op if self.coded_op is not None
                       else self.field_op)
-        self.op = self._tier if self._tier is not None else self.system.op
+        self.op = next(o for o in (self.shard_op, self._tier, self.system.op)
+                       if o is not None)
+        # the step's masks, on this Simulation's device: the system's, or
+        # on a mesh this rank's slabs
+        sysm = self.system
+        cut = (self.shard_op.shard if mesh is not None
+               else lambda t: t)
+        self._cond = cut(sysm.cond_mask).to(self.device)
+        self._inert = cut(sysm.inert).to(self.device)
+        self._bnd_a = cut(sysm.bnd_a).to(self.device)
+        self._bnd_u_any = cut(sysm.bnd_u_any).to(self.device)
+        self._shape = tuple(self._cond.shape)    # the step's (z, y, x)
 
         self.precond = precond
         self.cheb_order = cheb_order
@@ -352,11 +428,14 @@ class Simulation:
         if precond in ("jacobi", "cheb_jacobi"):
             # right-Jacobi: solve (A D^-1) y = b, x = D^-1 y, in the
             # solver space; the residual test stays the original system's
-            d = self.system.op.diagonal()
-            if self._tier is not None:
-                d = self._tier.pad_state(d)
-                d = State(torch.where(d.A == 0, 1.0, d.A).to(dtype),
-                          torch.where(d.U == 0, 1.0, d.U).to(dtype))
+            if self.shard_op is not None:
+                d = self.shard_op.diagonal_padded()
+            else:
+                d = self.system.op.diagonal()
+                if self._tier is not None:
+                    d = self._tier.pad_state(d)
+                    d = State(torch.where(d.A == 0, 1.0, d.A).to(dtype),
+                              torch.where(d.U == 0, 1.0, d.U).to(dtype))
             self._jac = (d, State(1.0 / d.A, 1.0 / d.U))
         if precond == "mg":
             # geometric V-cycle on the shared A-block stencil, built from
@@ -369,7 +448,8 @@ class Simulation:
                 ku0[z0:z1, y0:y1, x0:x1] = op.ku[0].to(
                     "cpu", torch.float64).numpy()
             self._mg = build_mg(op.ka, ku0=ku0, dtype=dtype,
-                                device=self.device)
+                                device=self.device,
+                                kernels=self.use_pallas)
         if precond == "ilu0":
             # right-ILU(0) in stencil form: host factorization on the CSR
             # export, factors in the state dtype (under coeff_dtype too, as
@@ -392,9 +472,8 @@ class Simulation:
         self.steps = _schedule(model.tran)
         self.n_steps = len(self.steps)
         nx, ny, nz = model.shape_xyz
-        self._N = nx * ny * nz
+        self._N = math.prod(self._shape)    # the step's cells
         self.flag_move = any(any(f.move) for f in model.functions)
-        self._bnd_u_any = self.system.bnd_u_any
 
         # host-side static per-function data
         self._funs = []
@@ -416,13 +495,24 @@ class Simulation:
                 comp,
                 fn,
                 cells.astype(np.int32),
-                torch.from_numpy(cells).to(self.device),
+                torch.from_numpy(self._own(cells)).to(self.device),
                 FunctionMotion(index=idx, ijk0=ijk0, const_shift=const_shift,
                                vmech_index=fn.vmech_index,
                                shape_xyz=model.shape_xyz),
             ))
 
     # ------------------------------------------------------------------
+    def _own(self, flat: np.ndarray) -> np.ndarray:
+        """The step's flat indices of the global flat cells ``flat`` that
+        lie in this Simulation's fields: all of them, or on a mesh those of
+        this rank's slab, in its own numbering."""
+        if self.shard_op is None:
+            return flat
+        plane = self._shape[1] * self._shape[2]
+        lo = self.shard_op.z0 * plane
+        mine = (flat >= lo) & (flat < lo + self._N)
+        return flat[mine] - lo
+
     def _zeros(self, *shape):
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
@@ -436,6 +526,16 @@ class Simulation:
             prev=(State(self._zeros(3, nz, ny, nx), self._zeros(nz, ny, nx))
                   if self.warm_start == "extrapolate" else None),
         )
+
+    def shard_state(self, state: SimState) -> SimState:
+        """``state`` (global fields) as :meth:`_step` takes it: itself, or
+        on a mesh this rank's slabs (no communication)."""
+        return _fields(state, self.shard_op and self.shard_op.shard)
+
+    def gather_state(self, state: SimState) -> SimState:
+        """The global fields of a :meth:`_step` ``state``: itself, or on a
+        mesh every rank's slabs joined, on every rank (all-gathers)."""
+        return _fields(state, self.shard_op and self.shard_op.gather)
 
     def _cast(self, v: float) -> float:
         """A host float64 value rounded to the working dtype."""
@@ -485,7 +585,11 @@ class Simulation:
         if key not in self._loops:
             self._loops[key] = DeviceLoop(
                 itmax=self.model.solver.itmax, dot_dtype=self.dot_dtype,
-                pool=self._pool, **self._solve_form())
+                pool=self._pool,
+                reduce=self.mesh.all_reduce if self.mesh is not None else None,
+                # NCCL's collectives between ranks cannot sit in a WHILE body
+                batched=self.mesh is not None and self.mesh.n_z > 1,
+                **self._solve_form())
         return self._loops[key]
 
     def _settle(self):
@@ -527,15 +631,40 @@ class Simulation:
         self._staged.append((ev, pinned))
         return out
 
-    def _step(self, state: SimState, t: float,
-              eager: bool = False) -> tuple[SimState, StepInfo]:
-        """One time step.  ``eager=True`` solves with the per-iteration
-        host loop (the solver's plain version) instead of the device loop,
-        for checks against it."""
+    def step_system(self, state: SimState, t: float) -> tuple[State, State]:
+        """``(b, x0)``: the right-hand side and the warm start of the linear
+        solve of the step at ``t`` from ``state``, in the step's layout
+        (global fields, or on a mesh this rank's slabs).  With
+        :meth:`solve` it lets a check hold a step's solution to the true
+        residual ``||b - A x|| / ||b||``."""
+        return self._rhs(state, t)[:2]
+
+    def solve(self, b: State, x0: State, eager: bool = False,
+              read: bool = True):
+        """The step's BiCGSTABwr solve of ``A x = b`` from ``x0`` at the
+        model's tolerance, with this Simulation's operator, preconditioner
+        and device loop (:class:`~..solvers.bicgstab.SolveResult`, ``x`` in
+        the step's layout, before the surface zeroing of the step).
+        ``eager=True`` runs the per-iteration host loop (the solver's plain
+        version); ``read=False``: see :meth:`DeviceLoop.solve`."""
+        tier = self._tier
+        if tier is not None:
+            b, x0 = tier.pad_state(b), tier.pad_state(x0)
+        loop = self._loop(b)
+        res = (loop.reference(b, x0, self._tol) if eager
+               else loop.solve(b, x0, self._tol, read=read))
+        if tier is not None:
+            res = res._replace(x=tier.unpad_state(res.x))
+        return res
+
+    def _rhs(self, state: SimState, t: float):
+        """(b, x0, rhs_A, motion, src_cells, src_values) of the step at
+        ``t``: the source scatter and the right-hand side (EC3D.f90:275-
+        408), and the warm start."""
         model = self.model
-        sysm = self.system
-        cond = sysm.cond_mask
-        inert = sysm.inert
+        cond = self._cond
+        inert = self._inert
+        bnd_a = self._bnd_a
         dt = float(model.tran.step)
 
         # ---- source scatter (EC3D.f90:275-367), function by function:
@@ -556,7 +685,7 @@ class Simulation:
                 dist_rows.append(drow)
                 comp_rows.append(crow)
                 val = self._cast(fn(t))
-                base[comp].index_fill_(0, self._upload(flat), val)
+                base[comp].index_fill_(0, self._upload(self._own(flat)), val)
                 src_cells.append(flat)
                 src_values.append(val)
             motion = MotionState(distance=np.stack(dist_rows),
@@ -569,15 +698,15 @@ class Simulation:
                 src_cells.append(cells_np)
                 src_values.append(val)
 
-        rhs_A = base.reshape((3,) + tuple(model.shape_zyx)) + inert[None] * state.A
+        rhs_A = base.reshape((3,) + self._shape) + inert[None] * state.A
         # the field tier has no apply_div: its RHS term is the assembled
         # operator's, as in the JAX package
-        div_op = self.coded_op if self.coded_op is not None else sysm.op
+        div_op = next(o for o in (self.shard_op, self.coded_op,
+                                  self.system.op) if o is not None)
         rhs_U = div_op.apply_div(state.A)
-        rhs_A = torch.where(sysm.bnd_a, 0.0, rhs_A)
+        rhs_A = torch.where(bnd_a, 0.0, rhs_A)
         rhs_U = torch.where(self._bnd_u_any, 0.0, rhs_U)
 
-        # ---- solve (EC3D.f90:408) ----
         b = State(rhs_A, rhs_U)
         if self.warm_start == "extrapolate":
             # linear prediction from the last two solutions
@@ -585,24 +714,32 @@ class Simulation:
                        2.0 * state.U - state.prev.U)
         else:
             x0 = State(state.A, state.U)
-        tier = self._tier
-        if tier is not None:
-            b, x0 = tier.pad_state(b), tier.pad_state(x0)
-        loop = self._loop(b)
+        return b, x0, rhs_A, motion, src_cells, src_values
+
+    def _step(self, state: SimState, t: float,
+              eager: bool = False) -> tuple[SimState, StepInfo]:
+        """One time step.  ``eager=True`` solves with the per-iteration
+        host loop (the solver's plain version) instead of the device loop,
+        for checks against it.  On a mesh ``state``'s fields are this
+        rank's slabs (:meth:`shard_state`), and so are the result's; the
+        step exchanges ghost planes with the neighbour slabs and all-reduces
+        the solver's dots, and gathers nothing."""
+        cond = self._cond
+        inert = self._inert
+        bnd_a = self._bnd_a
+        b, x0, rhs_A, motion, src_cells, src_values = self._rhs(state, t)
+
+        # ---- solve (EC3D.f90:408) ----
         # the device loop makes no host read: on the card the iterations
         # and convergence flag stay 0-d device tensors until a run reads
         # them all after its loop
-        res = (loop.reference(b, x0, self._tol) if eager
-               else loop.solve(b, x0, self._tol, read=False))
-        sol = res.x
-        if tier is not None:
-            sol = tier.unpad_state(sol)
-        A_new, U_new = sol.A, sol.U
+        res = self.solve(b, x0, eager=eager, read=False)
+        A_new, U_new = res.x.A, res.x.U
 
         # ---- post-solve inertial carry + surface zeroing (EC3D.f90:412-432)
         carry = torch.where(cond[None], inert[None] * A_new - rhs_A, rhs_A)
-        carry = torch.where(sysm.bnd_a, 0.0, carry)
-        A_out = torch.where(sysm.bnd_a, 0.0, A_new)
+        carry = torch.where(bnd_a, 0.0, carry)
+        A_out = torch.where(bnd_a, 0.0, A_new)
 
         new_state = SimState(
             A=A_out, U=U_new, carry=carry, motion=motion,
@@ -646,6 +783,9 @@ class Simulation:
 
         if resume and checkpoint_dir is None:
             raise ValueError("resume=True requires checkpoint_dir")
+        if checkpoint_dir is not None and self.mesh is not None:
+            raise ValueError("checkpoints on a mesh are not ported: a mesh "
+                             "run writes and resumes none (checkpoint_dir)")
         start = 0
         state = initial_state
         fingerprint = None
@@ -674,8 +814,12 @@ class Simulation:
         t_io = 0.0
         last_ck = None
         tick = max(len(self.steps) // 100, 1)
+        mesh = self.shard_op
+        state = self.shard_state(state)
+        # on a mesh the first rank writes the files
         writer = (_AsyncVtkWriter(self, output_dir)
-                  if output_dir is not None else None)
+                  if output_dir is not None
+                  and (mesh is None or self.mesh.index == 0) else None)
         try:
             for idx in range(start, len(steps)):
                 t, out = steps[idx]
@@ -683,10 +827,18 @@ class Simulation:
                 infos.append(info)
                 if out is not None:
                     t1 = _time.perf_counter()
+                    shown = state
+                    if mesh is not None and on_output is not None:
+                        shown = self.gather_state(state)     # every rank
+                    elif mesh is not None and output_dir is not None:
+                        # A and the carry on the first rank only
+                        A, carry = (mesh.gather_first(state.A),
+                                    mesh.gather_first(state.carry))
+                        shown = state._replace(A=A, carry=carry)
                     if writer is not None:
-                        writer.submit(state, info, out)
+                        writer.submit(shown, info, out)
                     if on_output is not None:
-                        on_output(out, state, info)
+                        on_output(out, shown, info)
                     t_io += _time.perf_counter() - t1
                 if every and (idx + 1) % every == 0:
                     t1 = _time.perf_counter()
@@ -711,7 +863,8 @@ class Simulation:
             ckpt.save_checkpoint(
                 os.path.join(checkpoint_dir, f"ckpt_{len(steps)}.npz"),
                 state, len(steps), steps[-1][1] or 0, fingerprint)
-        return state, infos, t_io
+        # on a mesh the global fields, on every rank, once at the end
+        return self.gather_state(state), infos, t_io
 
     def run_scan(self, num_steps: Optional[int] = None,
                  initial_state: Optional[SimState] = None,

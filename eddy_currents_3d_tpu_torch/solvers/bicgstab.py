@@ -25,9 +25,13 @@ graphs and joined into one graph whose WHILE node runs the iteration
 while ``not done and it <= itmax``, JAX's ``cond`` (``csrc/
 solve_graph.cu``): a solve is one graph launch, and the host reads
 ``(done, it)`` once, after it, or not at all.  A CUDA runtime without
-conditional nodes (< 12.4) cannot build that graph and raises.  On the
-CPU a batch of ``k`` iterations runs between reads, each iteration
-gated: every store is a select on ``not done and it <= itmax``, so the
+conditional nodes (< 12.4) cannot build that graph and raises.  A solve
+on a mesh of more than one rank (``batched``) cannot either: the WHILE
+body refuses the nodes NCCL's collectives capture into it (measured on
+four H100s, PERF.md), so there the three programs are captured with a
+batch of ``k`` iterations in the middle, each launched as a graph of its
+own, and the host reads ``(done, it)`` once a batch.  On the CPU a batch
+of ``k`` iterations runs between reads, each iteration gated: every store is a select on ``not done and it <= itmax``, so the
 iterations after ``done`` leave every value as it was.  The warm start
 is guarded on the device too (JAX's select): a right-preconditioned
 solve whose warm start already meets the tolerance starts with ``done``
@@ -36,7 +40,13 @@ bit for bit (``*_reference``, kept as the plain version the tests and
 ``Simulation._step(eager=True)`` run; a Simulation's own steps never do).
 
 Operands are :class:`~..assembly.stencil.State` values or plain tensors;
-dot products reduce over every leaf.
+dot products reduce over every leaf.  On a mesh (``parallel/``) every
+operand is a rank's slab, and ``reduce`` (an in-place sum over the ranks,
+``Mesh.all_reduce``) turns each rank's partial dots into the global ones:
+the dots an iteration forms together (``as·s`` with ``as·as``, ``r·r`` with
+``r·r0``; ``b·b`` with ``r·r`` at setup) go as one small vector, one
+all-reduce each, inside the solve's CUDA graphs on the card, with no host
+read, as the JAX package's psums sit inside its while loop.
 """
 
 from __future__ import annotations
@@ -51,7 +61,8 @@ from ..assembly.stencil import State
 from ..utils.graph import Graph, SolveGraph, read_host
 
 __all__ = ["bicgstab_wr", "bicgstab_wr_right", "bicgstab_jacobi",
-           "DeviceLoop", "K", "tree_dot", "tree_norm", "tree_axpy", "SolveResult", "bicgstab_wr_reference",
+           "DeviceLoop", "K", "tree_dot", "tree_norm", "tree_axpy", "dots",
+           "SolveResult", "bicgstab_wr_reference",
            "bicgstab_wr_right_reference", "bicgstab_jacobi_reference"]
 
 # Iterations a batch holds on the CPU: the host reads (done, it) once per
@@ -79,6 +90,18 @@ def tree_dot(a, b, dtype=None):
 
 def tree_norm(a, dtype=None):
     return torch.sqrt(tree_dot(a, a, dtype))
+
+
+def dots(pairs, dtype=None, reduce=None):
+    """``[tree_dot(a, b, dtype) for a, b in pairs]``; with ``reduce`` (an
+    in-place sum over a mesh's ranks) these per-rank partial sums are
+    summed over the ranks together, as one vector."""
+    parts = [tree_dot(a, b, dtype) for a, b in pairs]
+    if reduce is None:
+        return parts
+    v = torch.stack(parts)
+    reduce(v)
+    return list(v.unbind(0))
 
 
 def tree_axpy(alpha, x, y):
@@ -140,7 +163,11 @@ class DeviceLoop:
     is given), as :func:`bicgstab_wr_right`.  ``k``: iterations per batch
     on the CPU (default :data:`K`).
     ``pool``: the CUDA graph memory pool the programs share (one per
-    ``Simulation``).
+    ``Simulation``).  ``reduce``: on a mesh, the in-place sum over its
+    ranks that completes every dot (:func:`dots`); not with ``mv_dot``.
+    ``batched``: on the card, launch the captured setup, ``k``-iteration
+    batch and finish as three graphs with one host read of ``(done, it)``
+    a batch, instead of the one WHILE-node graph (a mesh of several ranks).
 
     On a CUDA device the first solve captures the programs as CUDA graphs
     (``captures`` counts that: once per loop) and joins them into one graph
@@ -154,10 +181,14 @@ class DeviceLoop:
                  dot_dtype: Optional[torch.dtype] = None,
                  mv_dot: Optional[Callable] = None, *,
                  minv: Optional[Callable] = None, scale=None,
-                 k: Optional[int] = None, pool=None):
+                 k: Optional[int] = None, pool=None,
+                 reduce: Optional[Callable] = None, batched: bool = False):
         if minv is not None and mv_dot is not None:
             raise ValueError("mv_dot fuses the dots of the operator the "
                              "iterations run on; with minv that is A M^-1")
+        if reduce is not None and mv_dot is not None:
+            raise ValueError("mv_dot's dots are one device's sums; a mesh "
+                             "reduces the dots it forms itself")
         k = K if k is None else k
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
@@ -165,9 +196,10 @@ class DeviceLoop:
         self.dot_dtype, self.mv_dot = dot_dtype, mv_dot
         self.minv, self.scale, self.k = minv, scale, k
         self.pool = pool
+        self.reduce = reduce
+        self.batched = batched
         self.captures = 0
-        self._dot = partial(tree_dot, dtype=dot_dtype)
-        self._nrm = partial(tree_norm, dtype=dot_dtype)
+        self._dots = partial(dots, dtype=dot_dtype, reduce=reduce)
         self._s = None
         self._graphs = None
         self._tol_const = None
@@ -216,13 +248,14 @@ class DeviceLoop:
     def _init(self, S, b, x0, done0=None):
         """The carry at iteration 0 for ``A x = b`` from ``x0``."""
         r = _map(torch.sub, b, self._op(x0))
-        bnorm = self._nrm(b)
+        bb, rr = self._dots([(b, b), (r, r)])
+        bnorm = torch.sqrt(bb)
         S.bnorm.copy_(bnorm)
         zero_b = bnorm == 0.0
         _copy(S.x, x0)
         for dst in (S.r, S.r0, S.p):
             _copy(dst, r)
-        S.rr0.copy_(self._dot(r, r))           # r0 == r at entry
+        S.rr0.copy_(rr)                        # r0 == r at entry
         S.it.zero_()
         S.relres.fill_(float("inf"))
         S.done.copy_(zero_b if done0 is None else zero_b | done0)
@@ -240,8 +273,7 @@ class DeviceLoop:
         # from zero, the tolerance rescaled by ||b|| / ||b - A x0||
         tol = S.tol_in if S.tol_in is not None else self._tol_const
         r0 = _map(torch.sub, S.b, self._scaled(x0))
-        bnorm = self._nrm(S.b)
-        rnorm = self._nrm(r0)
+        bnorm, rnorm = map(torch.sqrt, self._dots([(S.b, S.b), (r0, r0)]))
         S.rnorm.copy_(rnorm)
         S.safe_b.copy_(torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm))
         # the warm start already meets the tolerance (or b = 0): done at
@@ -268,20 +300,22 @@ class DeviceLoop:
     def _iterate(self, c, on=None):
         """One iteration on the carry of ``c``, written in place; with
         ``on`` (a 0-d bool) every store is a select on it."""
-        dot, nrm = self._dot, self._nrm
+        dots = self._dots
         if self.mv_dot is None:
             ap = self._op(c.p)
-            ap_r0 = dot(ap, c.r0)
+            ap_r0, = dots([(ap, c.r0)])
         else:
             ap, ap_r0, _ = self._mvd(c.p, c.r0)
         alpha = c.rr0 / ap_r0
         s = tree_axpy(-alpha, ap, c.r)
-        s_rel = nrm(s) / c.bnorm
+        ss, = dots([(s, s)])
+        s_rel = torch.sqrt(ss) / c.bnorm
         conv_s = s_rel < c.tol
 
         if self.mv_dot is None:
             as_ = self._op(s)
-            omega = dot(as_, s) / dot(as_, as_)
+            as_s, as_as = dots([(as_, s), (as_, as_)])
+            omega = as_s / as_as
         else:
             as_, as_s, as_as = self._mvd(s, s)
             omega = as_s / as_as
@@ -299,11 +333,10 @@ class DeviceLoop:
         neg = -omega_g
         _map(lambda ri, si, ai: _put(ri, torch.add, si, neg.to(ai.dtype) * ai,
                                      on=on), c.r, s, as_)
-        rr = dot(c.r, c.r)
+        rr, rr0_new = dots([(c.r, c.r), (c.r, c.r0)])
         r_rel = torch.sqrt(rr) / c.bnorm
         conv_r = r_rel < c.tol
 
-        rr0_new = dot(c.r, c.r0)
         # restart r0 = r; p = r (solvers.f90:47-49) == gating beta to 0 and
         # selecting r0; likewise a converged iteration's p/r0 are dead.
         restart = (torch.abs(rr0_new) / c.bnorm) < c.tol
@@ -350,12 +383,19 @@ class DeviceLoop:
                 self._finish(S)
             self._status(S)
 
-        self._graphs = (
-            Graph(lambda: self._setup(S), dev, pool),
-            Graph(lambda: self._iterate(S), dev, pool, warm=warm),
-            Graph(finish, dev, pool))
-        self._exec = SolveGraph(*(g.raw for g in self._graphs), S.done,
-                                S.it, self.itmax)
+        if self.batched:
+            self._graphs = (
+                Graph(lambda: self._setup(S), dev, pool),
+                Graph(lambda: self._batch(S), dev, pool,
+                      warm=lambda: self._batch(S.carry_clone())),
+                Graph(finish, dev, pool))
+        else:
+            self._graphs = (
+                Graph(lambda: self._setup(S), dev, pool),
+                Graph(lambda: self._iterate(S), dev, pool, warm=warm),
+                Graph(finish, dev, pool))
+            self._exec = SolveGraph(*(g.raw for g in self._graphs), S.done,
+                                    S.it, self.itmax)
         self.captures += 1
 
     def _read(self, S):
@@ -401,15 +441,33 @@ class DeviceLoop:
         ``read=False`` lets a solve on the card make no host read:
         ``iterations`` and ``converged`` come back as 0-d device tensors
         (int32, bool), as JAX's do, and the iterations' launches are
-        counted at the next :meth:`settle`.  On the CPU the batches read
-        anyway, and they come back as int and bool."""
+        counted at the next :meth:`settle`.  On the CPU, and in the
+        ``batched`` form, the batches read anyway, and they come back as int
+        and bool."""
         S = self._stage(b, x0, tol)
         cuda = S.status.device.type == "cuda"
         if cuda and self._graphs is None:
             self._capture(S)
         out = hasattr(S, "x_out")
         sync_s, reads = 0.0, 0
-        if cuda:
+        if cuda and self.batched:
+            # setup, a batch graph a read, finish
+            setup, batch, finish = self._graphs
+            setup.replay()
+            setup.count()
+            while True:
+                batch.replay()
+                batch.count()
+                t0 = time.perf_counter()
+                done, it = self._read(S)
+                sync_s += time.perf_counter() - t0
+                reads += 1
+                if done or it > self.itmax:
+                    break
+            finish.replay()
+            finish.count()
+            done = bool(done)
+        elif cuda:
             # the whole solve is one launch, and at most one read after it
             self._exec.launch()
             self._graphs[0].count()
@@ -450,11 +508,13 @@ class DeviceLoop:
             x0 = _map(torch.mul, self.scale[0], x0)
         if self.minv is not None:
             res = bicgstab_wr_right_reference(A, self.minv, b, x0, tol,
-                                              self.itmax, self.dot_dtype)
+                                              self.itmax, self.dot_dtype,
+                                              reduce=self.reduce)
         else:
             res = bicgstab_wr_reference(
                 A, b, x0, tol, self.itmax, self.dot_dtype,
-                mv_dot=self._mvd if self.mv_dot is not None else None)
+                mv_dot=self._mvd if self.mv_dot is not None else None,
+                reduce=self.reduce)
         if self.scale is not None:
             res = res._replace(x=_map(torch.mul, self.scale[1], res.x))
         return res
@@ -529,17 +589,18 @@ def bicgstab_wr_reference(
     itmax: int,
     dot_dtype: Optional[torch.dtype] = None,
     mv_dot: Optional[Callable] = None,
+    reduce: Optional[Callable] = None,
 ) -> SolveResult:
     """:func:`bicgstab_wr` with one host read of ``done`` per iteration
-    (the plain version the device loop is held to, bit for bit)."""
-    dot = partial(tree_dot, dtype=dot_dtype)
-    nrm = partial(tree_norm, dtype=dot_dtype)
+    (the plain version the device loop is held to, bit for bit; its dots
+    grouped as the loop's for ``reduce``)."""
+    dt = partial(dots, dtype=dot_dtype, reduce=reduce)
 
     r = _map(torch.sub, b, apply_fn(x0))
-    bnorm = nrm(b)
+    bb, rr0 = dt([(b, b), (r, r)])         # r0 == r at entry
+    bnorm = torch.sqrt(bb)
     zero_b = bnorm == 0.0
     x, r0, p = x0, r, r
-    rr0 = dot(r, r)                        # r0 == r at entry
     relres = torch.full((), float("inf"), dtype=bnorm.dtype,
                         device=bnorm.device)
     t0 = time.perf_counter()
@@ -551,17 +612,19 @@ def bicgstab_wr_reference(
         it += 1
         if mv_dot is None:
             ap = apply_fn(p)
-            ap_r0 = dot(ap, r0)
+            ap_r0, = dt([(ap, r0)])
         else:
             ap, ap_r0, _ = mv_dot(p, r0)
         alpha = rr0 / ap_r0
         s = tree_axpy(-alpha, ap, r)
-        s_rel = nrm(s) / bnorm
+        ss, = dt([(s, s)])
+        s_rel = torch.sqrt(ss) / bnorm
         conv_s = s_rel < tol
 
         if mv_dot is None:
             as_ = apply_fn(s)
-            omega = dot(as_, s) / dot(as_, as_)
+            as_s, as_as = dt([(as_, s), (as_, as_)])
+            omega = as_s / as_as
         else:
             as_, as_s, as_as = mv_dot(s, s)
             omega = as_s / as_as
@@ -570,11 +633,10 @@ def bicgstab_wr_reference(
         x = _map(lambda xi, pi, si: (xi + alpha.to(xi.dtype) * pi
                                      + omega_g.to(xi.dtype) * si), x, p, s)
         r_new = tree_axpy(-omega_g, as_, s)
-        rr = dot(r_new, r_new)
+        rr, rr0_new = dt([(r_new, r_new), (r_new, r0)])
         r_rel = torch.sqrt(rr) / bnorm
         conv_r = r_rel < tol
 
-        rr0_new = dot(r_new, r0)
         restart = (torch.abs(rr0_new) / bnorm) < tol
         beta = (alpha / omega) * rr0_new / rr0
         stop = restart | conv_s
@@ -609,14 +671,15 @@ def bicgstab_jacobi_reference(apply_fn: Callable, diag, b, x0, tol,
 
 def bicgstab_wr_right_reference(apply_fn: Callable, minv: Callable, b, x0,
                                 tol, itmax: int,
-                                dot_dtype: Optional[torch.dtype] = None
+                                dot_dtype: Optional[torch.dtype] = None,
+                                reduce: Optional[Callable] = None
                                 ) -> SolveResult:
     """:func:`bicgstab_wr_right` on the per-iteration host loop: one host
     read of the warm start's ``already`` decides, before the inner solve,
     whether it runs."""
     r0 = _map(torch.sub, b, apply_fn(x0))
-    bnorm = tree_norm(b, dot_dtype)
-    rnorm = tree_norm(r0, dot_dtype)
+    bnorm, rnorm = map(torch.sqrt, dots([(b, b), (r0, r0)], dot_dtype,
+                                        reduce))
     safe_b = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
     t0 = time.perf_counter()
     already = bool(rnorm <= tol * bnorm)
@@ -627,7 +690,8 @@ def bicgstab_wr_right_reference(apply_fn: Callable, minv: Callable, b, x0,
     tol_eff = tol * bnorm / rnorm
     zero = _map(torch.zeros_like, b)
     res = bicgstab_wr_reference(lambda v: apply_fn(minv(v)), r0, zero,
-                                tol_eff, itmax, dot_dtype=dot_dtype)
+                                tol_eff, itmax, dot_dtype=dot_dtype,
+                                reduce=reduce)
     x = _map(torch.add, x0, minv(res.x))
     return SolveResult(x=x, iterations=res.iterations,
                        relres=res.relres * rnorm / safe_b,

@@ -7,9 +7,11 @@ with the same construction:
   coarse cell to its 2x2x2 children; R = P^T sums them.  For a 7-point fine
   stencil the Galerkin product R A P is again 7-point, so every level is the
   same coefficient-field stencil apply, :func:`stencil7_apply`: on CUDA the
-  hand-written ``field_a`` kernel (``ops/field_cuda.py``), on the CPU the
-  flat-roll torch form (and ``field_a``'s plain version at bfloat16).  Coarse coefficients are reshape-sums of the fine
-  fields on the host (:func:`galerkin_coarsen`, numpy float64).
+  hand-written ``field_a`` kernel (``ops/field_cuda.py``), on the CPU, at
+  float64 and under ``kernels=False`` (a Simulation's ``use_pallas=False``)
+  the flat-roll torch form (and ``field_a``'s plain version at bfloat16).
+  Coarse coefficients are reshape-sums of the fine fields on the host
+  (:func:`galerkin_coarsen`, numpy float64).
 * **Damped-Jacobi smoothing** (omega = 2/3).
 * **Fixed V-cycle** (fixed recursion and sweep counts, zero initial guess),
   so the preconditioner is a constant linear operator, fit for the
@@ -51,14 +53,16 @@ class MgUnsupported(ValueError):
     jacobi/cheb_jacobi or the unpreconditioned coded path at scale."""
 
 
-def stencil7_apply(ka: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def stencil7_apply(ka: torch.Tensor, x: torch.Tensor,
+                   kernels: bool = True) -> torch.Tensor:
     """y = A x for the 7-offset coefficient fields ``ka`` (7, nz, ny, nx)
-    and ``x`` (..., nz, ny, nx).  On CUDA the ``field_a`` kernel; on the
-    CPU the flat-roll formulation (wrapped entries are killed by zero
-    boundary coefficients, the invariant of assembly/stencil.py), except
-    at bfloat16, where ``field_a``'s plain version rounds once as the
-    kernel does (the flat-roll form would round every operation)."""
-    if x.device.type != "cpu":
+    and ``x`` (..., nz, ny, nx).  On CUDA the ``field_a`` kernel where
+    ``kernels``; else, and on the CPU, the flat-roll formulation (wrapped
+    entries are killed by zero boundary coefficients, the invariant of
+    assembly/stencil.py), except at bfloat16, where ``field_a``'s plain
+    version rounds once as the kernel does (the flat-roll form would round
+    every operation)."""
+    if kernels and x.device.type != "cpu":
         from ..ops.field_cuda import field_a
         return field_a(ka, x)
     if x.dtype == torch.bfloat16:
@@ -157,11 +161,13 @@ class MGPreconditioner:
     pre: int = 1
     post: int = 1
     coarse_sweeps: int = 12
+    kernels: bool = True   # stencil7_apply's: field_a on the card
 
     # -- scalar-field V-cycle ------------------------------------------
     def _smooth(self, lvl: MGLevel, b, x, sweeps):
         for _ in range(sweeps):
-            x = x + _W * lvl.inv_d * (b - stencil7_apply(lvl.ka, x))
+            x = x + _W * lvl.inv_d * (b - stencil7_apply(lvl.ka, x,
+                                                          self.kernels))
         return x
 
     def _vcycle(self, li: int, b):
@@ -170,7 +176,7 @@ class MGPreconditioner:
         if li == len(self.levels) - 1:
             return self._smooth(lvl, b, x, self.coarse_sweeps - 1)
         x = self._smooth(lvl, b, x, self.pre - 1)
-        r = b - stencil7_apply(lvl.ka, x)
+        r = b - stencil7_apply(lvl.ka, x, self.kernels)
         # pad to even, restrict, recurse, prolong, crop
         pz, py, px = (p - s for p, s in zip(lvl.pshape, lvl.shape))
         rp = F.pad(r, (0, px, 0, py, 0, pz))
@@ -197,13 +203,15 @@ def _host64(a) -> np.ndarray:
 
 def build_mg(ka, ku0=None, min_dim: int = 4, max_levels: int = 10,
              pre: int = 1, post: int = 1, coarse_sweeps: int = 12,
-             dtype: torch.dtype = None, device=None) -> MGPreconditioner:
+             dtype: torch.dtype = None, device=None,
+             kernels: bool = True) -> MGPreconditioner:
     """Build the V-cycle hierarchy from fine A coefficients ``ka``
     (7, nz, ny, nx; a tensor or a numpy array) and the optional U-row
     diagonal field ``ku0`` (nz, ny, nx; zeros off-conductor).  The levels
     are ``dtype`` tensors on ``device`` (default: ``ka``'s when it is a
-    tensor, else the CUDA device, which must exist).  Raises
-    :class:`MgUnsupported` above MG_CELL_LIMIT cells."""
+    tensor, else the CUDA device, which must exist); ``kernels=False``
+    applies them with torch ops on the card too (float64 needs it there).
+    Raises :class:`MgUnsupported` above MG_CELL_LIMIT cells."""
     n_cells = int(np.prod(tuple(ka.shape)[1:]))
     if n_cells > MG_CELL_LIMIT:
         raise MgUnsupported(
@@ -239,4 +247,5 @@ def build_mg(ka, ku0=None, min_dim: int = 4, max_levels: int = 10,
         inv_du = dev(np.where(ku0 != 0, 1.0 / np.where(ku0 == 0, 1.0, ku0),
                               1.0))
     return MGPreconditioner(levels=tuple(levels), inv_du=inv_du, pre=pre,
-                            post=post, coarse_sweeps=coarse_sweeps)
+                            post=post, coarse_sweeps=coarse_sweeps,
+                            kernels=kernels)

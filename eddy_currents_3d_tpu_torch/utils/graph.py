@@ -80,8 +80,8 @@ class Graph:
     in memory pool ``pool``, after one eager ``warm()`` (default ``fn``)
     on a side stream; both with this graph's scratch store.  A failed
     capture raises.  The captured ``cudaGraph_t`` (:attr:`raw`) is kept for
-    a :class:`SolveGraph` to hold as a child node; it is never
-    instantiated on its own."""
+    a :class:`SolveGraph` to hold as a child node, or the graph is
+    launched on its own (:meth:`replay`, instantiated at its first run)."""
 
     def __init__(self, fn: Callable[[], None], dev, pool=None,
                  warm: Optional[Callable[[], None]] = None):
@@ -99,6 +99,10 @@ class Graph:
         for h, b in zip(_COUNTS, before):
             h.launches = b
         self.raw = self._graph.raw_cuda_graph()
+
+    def replay(self):
+        """Run the graph once on the current stream."""
+        self._graph.replay()
 
     def count(self, runs: int = 1):
         """Add to every wrapper's count the launches of ``runs`` runs."""
@@ -145,7 +149,10 @@ class SolveGraph:
                                         ctypes.byref(out))
         if err != 0:
             raise RuntimeError(f"solve_graph_build failed: CUDA error {err} "
-                               "(conditional WHILE nodes need CUDA 12.4+)")
+                               "(conditional WHILE nodes need CUDA 12.4+, "
+                               "and their bodies refuse some captured "
+                               "nodes, a multi-rank NCCL collective's "
+                               "among them)")
         self._exec = out.value
         self._held = (done, it)
 

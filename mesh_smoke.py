@@ -1,0 +1,268 @@
+#!/usr/bin/env python3
+"""The port's z-slab tier across cards: one process a card, NCCL between them.
+
+    torchrun --nproc-per-node 4 mesh_smoke.py
+    torchrun --nproc-per-node 4 mesh_smoke.py --cpu --shape 16,16,14 --steps 3
+
+(``python -m torch.distributed.run`` where ``torchrun`` is not on the path.)
+Each rank takes the card of its local rank, joins the NCCL group that
+torchrun's environment describes (gloo on the CPU with ``--cpu``) and runs
+``case_static`` (102x102x24 by default) on ``make_mesh(N)``, its z slab of
+the grid, at float32 and at float64 with float64 dots, each Simulation
+graphed: a first step captures the solve, then ``--steps`` steps are timed.
+Every rank then runs the same model on its own card alone (the unsharded
+field tier at float32, the flat-roll operator at float64), solves step 1
+at float64 to 1e-8 (right-Jacobi: the converged solution) and checks:
+
+* float64: A within 1e-9 of scale (the largest |A| of the unsharded run
+  after the timed steps) of the unsharded run after step 1 and after the
+  timed steps, with the same iterations (tests/test_shard_op.py's bound);
+* step 1's solutions, the mesh's and the card's alone, at both dtypes:
+  the true residual ||b - A x|| / ||b||, recomputed at float64 on the host
+  with the float64 operator, under the tolerance;
+* float32, the mesh's and the card's alone: A after step 1 no farther from
+  the converged solution than the float64 run's, plus the one-device
+  float32 bound: max |A - A_conv| <= max |A_f64 - A_conv| + 4 tol scale
+  (scale: max |A_f64|), what the one-device bound max |A - A_f64| <= 4 tol
+  scale says of accuracy.  Each float32 run's distance to the float64 run
+  is printed: float32 solves of team7's step 1 stop at either of two
+  answers ~6.7 tol scale apart, both under the stopping rule, and which
+  one a run reaches turns on the order its dots are summed in (with
+  ``--cpu`` the card-alone runs sum on one thread and reach the far one);
+* step 1 graphed equals step 1 on the per-iteration host loop bit for
+  bit;
+* one capture per Simulation, and the dots' all-reduce called while the
+  solve is captured and never after (it runs inside the graph).
+
+Rank 0 prints the device, each run's iterations and ms/iteration at this
+world size, and, last, one JSON line with ``"ok"``.  A failed check raises,
+and torchrun stops the other ranks.
+"""
+
+import argparse
+import dataclasses
+import datetime
+import faulthandler
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+
+
+def _run(sim, steps, note):
+    """(state, diagnostics, wall seconds, all-reduce calls during the
+    first graphed step, after it) of ``steps`` steps, after step 1 on the
+    per-iteration host loop and graphed (which captures), the two equal
+    bit for bit."""
+    calls = []
+    real = sim.mesh.all_reduce
+    object.__setattr__(sim.mesh, "all_reduce",
+                       lambda t: calls.append(1) or real(t))
+    try:
+        s0 = sim.shard_state(sim.init_state())
+        t1 = sim.steps[0][0]
+        note("step 1 on the host loop")
+        se, ie = sim._step(s0, t1, eager=True)
+        note("step 1 graphed")
+        n0 = len(calls)
+        sg, ig = sim._step(s0, t1)
+        n_cap = len(calls) - n0
+        if not (int(ig.iterations) == ie.iterations
+                and torch.equal(sg.A, se.A) and torch.equal(sg.U, se.U)):
+            raise AssertionError("the graphed step differs from the host "
+                                 "loop's")
+        note("timed run")
+        n0 = len(calls)
+        if sim.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, diag = sim.run(num_steps=steps)
+        wall = time.perf_counter() - t0
+    finally:
+        object.__setattr__(sim.mesh, "all_reduce", real)
+    return st, diag, wall, n_cap, len(calls) - n0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--cpu", action="store_true",
+                   help="gloo ranks on the CPU (a rehearsal)")
+    p.add_argument("--shape", default="102,102,24", help="nx,ny,nz")
+    p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--deadline", type=float, default=600.0,
+                   help="seconds after which every rank prints its Python "
+                   "stacks and exits (a collective waits at most this long)")
+    args = p.parse_args(argv)
+    if "RANK" not in os.environ:
+        print("mesh_smoke: start it with torchrun --nproc-per-node N",
+              file=sys.stderr)
+        return 2
+    if not args.cpu and not torch.cuda.is_available():
+        print("mesh_smoke: no CUDA device (--cpu rehearses on the CPU)",
+              file=sys.stderr)
+        return 1
+
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.assembly.assemble import assemble_operator
+    from eddy_currents_3d_tpu_torch.assembly.stencil import State
+    from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
+    from eddy_currents_3d_tpu_torch.solvers.bicgstab import tree_norm
+    from eddy_currents_3d_tpu_torch.testing.cases import case_static, load_case
+
+    faulthandler.dump_traceback_later(args.deadline, exit=True)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    # a collective that waits longer than this raises instead of hanging
+    limit = datetime.timedelta(seconds=args.deadline)
+    if args.cpu:
+        dist.init_process_group("gloo", timeout=limit)
+        torch.set_num_threads(1)
+    else:
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl", timeout=limit,
+                                device_id=torch.device("cuda", local))
+
+    def say(*parts):
+        if rank == 0:
+            print(*parts, flush=True)
+
+    def note(stage):
+        print(f"[rank {rank}] {stage} at {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+
+    t0 = time.perf_counter()
+    try:
+        mesh = make_mesh(world)
+        dev = mesh.device
+        if rank == 0 and not args.cpu:
+            smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"],
+                                 capture_output=True, text=True, timeout=60)
+            say(smi.stdout.strip())
+        shape = tuple(int(n) for n in args.shape.split(","))
+        model = load_case(case_static(shape_xyz=shape, steps=args.steps + 1))
+        tol = model.solver.tolerance
+        f32, f64 = torch.float32, torch.float64
+        cpu = torch.device("cpu")
+
+        def step1(sim):
+            """Step 1's solution from rest, global, on the host."""
+            st = sim.shard_state(sim.init_state()) if sim.mesh else \
+                sim.init_state()
+            x = sim.solve(*sim.step_system(st, sim.steps[0][0])).x
+            if sim.mesh is not None:
+                x = sim.shard_op.unpad_state(x)
+            return State(x.A.to(cpu, f64), x.U.to(cpu, f64))
+
+        note("step 1 at float64 and converged, on the card alone")
+        one64 = Simulation(model, f64, f64, device=dev)
+        b, x0 = one64.step_system(one64.init_state(), one64.steps[0][0])
+        x64 = one64.solve(b, x0).x
+        tight = dataclasses.replace(model, solver=dataclasses.replace(
+            model.solver, tolerance=1e-8))
+        conv = Simulation(tight, f64, device=dev, precond="jacobi").solve(
+            b, x0)
+        host = assemble_operator(model, f64, "cpu")
+        b = State(b.A.to(cpu), b.U.to(cpu))
+        surface = lambda A: torch.where(host.bnd_a, 0.0, A)
+        A64 = surface(x64.A.to(cpu))
+        Ac = surface(conv.x.A.to(cpu))
+        scale1 = A64.abs().max().item()
+        dist1 = lambda A, ref: ((surface(A) - ref).abs().max().item()
+                                / (tol * scale1))
+        f64_to_conv = dist1(A64, Ac)
+        bound = f64_to_conv + 4.0
+
+        def held(x):
+            """(true residual, tol scale to the float64 run, to the
+            converged solution) of a step-1 solution."""
+            y = host.op.apply(x)
+            rel = (tree_norm(State(b.A - y.A, b.U - y.U))
+                   / tree_norm(b)).item()
+            return rel, dist1(x.A, A64), dist1(x.A, Ac)
+
+        say(f"[mesh] step 1 at float64 on one card: {int(conv.iterations)} "
+            f"iterations to 1e-8 (jacobi); the tol-{tol} answer lies "
+            f"{f64_to_conv:.3f} tol scale from it; float32 bound "
+            f"{bound:.3f}")
+        out = {"f64_to_conv": f64_to_conv}
+        for label, dtype, dot, ref_kw in (
+                ("f32", f32, None, {"use_coded": False}),
+                ("f64", f64, f64, {})):
+            note(f"{label}: mesh run")
+            sim = Simulation(model, dtype, dot, mesh=mesh)
+            st, diag, wall, n_cap, n_after = _run(sim, args.steps, note)
+            note(f"{label}: one-device run")
+            ref = Simulation(model, dtype, dot, device=dev, **ref_kw)
+            s1, d1 = sim.run(num_steps=1)
+            r1, _ = ref.run(num_steps=1)
+            step = {"mesh": held(step1(sim)), "one card": held(step1(ref))}
+            for who, (rel, to64, toc) in step.items():
+                say(f"[mesh] {label} step 1, {who}: true residual {rel:.6f}"
+                    f" (tol {tol}); {to64:.3f} tol scale from the float64 "
+                    f"run, {toc:.3f} from the converged solution")
+                if rel >= tol or (label == "f32" and toc > bound):
+                    raise AssertionError(
+                        f"{label} step 1, {who}: true residual {rel}, "
+                        f"{toc} tol scale from the converged solution "
+                        f"(bound {bound})")
+            sr, dr = ref.run(num_steps=args.steps)
+            scale = sr.A.abs().max().item()
+            gap1 = (s1.A - r1.A).abs().max().item() / scale
+            gap = (st.A - sr.A).abs().max().item() / scale
+            its = diag["iterations"]
+            ms = wall / diag["total_iterations"] * 1e3
+            say(f"[mesh] {label} {shape} on {world} slabs of "
+                f"{sim.shard_op.NZl} planes: iterations {its} (one device "
+                f"{dr['iterations']}); max |dA| / scale after step 1 "
+                f"{gap1:.2e} ({gap1 / tol:.3f} tol scale), after "
+                f"{args.steps} steps {gap:.2e} ({gap / tol:.3f})"
+                f"{', limit 1e-9' if label == 'f64' else ''}; "
+                f"{ms:.3f} ms/iteration at world size {world}, "
+                f"{wall / args.steps * 1e3:.2f} ms/step; captures "
+                f"{sim.captures}; all-reduce calls {n_cap} in the capturing "
+                f"step, {n_after} in the timed run")
+            graphed = (sim.captures == 1 and n_cap > 0 and n_after == 0
+                       if dev.type == "cuda" else True)   # no graph on CPU
+            if not (graphed and not diag["unconverged_steps"]):
+                raise AssertionError(f"{label}: step-1 gap {gap1}, captures "
+                                     f"{sim.captures}, all-reduce calls "
+                                     f"{n_cap}, {n_after}, iterations {its}")
+            if label == "f64" and (its != dr["iterations"]
+                                   or max(gap1, gap) > 1e-9):
+                raise AssertionError(f"f64: iterations {its} against "
+                                     f"{dr['iterations']}, gaps {gap1}, "
+                                     f"{gap}")
+            out[label] = {"iterations": its, "ms_per_iteration": ms,
+                          "gap_step1": gap1, "gap": gap,
+                          "step1": {k: dict(zip(("true_relres", "to_f64",
+                                                  "to_conv"), v))
+                                    for k, v in step.items()}}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+        say(json.dumps({"ok": True, "world": world, "device": str(
+            torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
+            "runs": out}))
+    except Exception:
+        # the other ranks may wait in a collective this rank never joins:
+        # report and leave without destroy_process_group, which would wait
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    # every rank has passed the barrier after its last collective; leave
+    # without destroy_process_group, which on 4 H100s has waited past the
+    # deadline on some ranks with the graphs that hold NCCL's collectives
+    # still alive
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

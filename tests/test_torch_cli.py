@@ -4,8 +4,8 @@ package's CLI.
 
 * Behaviour: end to end, the SOLVER DIR default with ``-q``, a missing
   input (rc 2), ``--scan``'s bytes equal the loop's; the refusals (rc 2):
-  ``--mesh``, ``--dtype f64`` off the CPU, ``--coeff-dtype f32`` at
-  ``--dtype bf16``, the checkpoint-flag misuses.
+  ``--mesh``, the checkpoint-flag misuses.  ``--dtype f64`` runs on the
+  card (a card test) as on the CPU.
 * Parity: ``AssembledSystem.matrix_stats()`` equals JAX's exactly on the
   static, moving, LIM and no-conductor cases; the f64 CLI's field files,
   read back with ``read_vtk_vectors``, equal the JAX CLI's f64 run within
@@ -18,7 +18,15 @@ package's CLI.
   same text.
 * ``Simulation(coeff_dtype=torch.float32)`` runs the field tier at float32
   coefficients, as JAX does (no cast; any ``coeff_dtype`` turns off the
-  coded tier), within 4 tol of JAX's ``coeff_dtype=jnp.float32`` run.
+  coded tier), within 4 tol of JAX's ``coeff_dtype=jnp.float32`` run.  At
+  bfloat16 state (``Simulation(coeff_dtype=torch.float32)``, ``--dtype
+  bf16 --coeff-dtype f32``) the gap of A to the port's float64 run is at
+  most twice JAX's own bfloat16 gap.  JAX's run of that very pair does not
+  run on the CPU: its flat-roll operator promotes the carry to float32
+  (``lax.while_loop`` refuses it) and its Pallas kernels in interpret mode
+  store a float32 sum into a bfloat16 output ("Invalid dtype for swap",
+  ``ops/pallas_stencil.py:145``); so JAX's gap is that of its
+  bfloat16-coefficient run, whose operator is the coarser of the two.
 """
 
 import os
@@ -101,14 +109,9 @@ def test_cli_scan_outputs_match_host_loop(case_file, tmp_path, dtype):
 @pytest.mark.parametrize("argv, message", [
     (["--mesh", "4"], "multi-device tier is not ported"),
     (["--mesh", "4,2", "--device", "cpu"], "multi-device tier is not ported"),
-    (["--dtype", "f64"], "CPU only"),
-    (["--dtype", "float64", "--device", "cuda"], "CPU only"),
     (["--resume"], "--resume requires --checkpoint-dir"),
     (["--checkpoint-dir", "ck"], "without --checkpoint-every"),
-    (["--dtype", "bf16", "--coeff-dtype", "f32", "--device", "cpu"],
-     "bfloat16 coefficients at bfloat16 state"),
-], ids=["mesh", "mesh-cpu", "f64-default", "f64-cuda", "resume",
-        "checkpoint-dir", "bf16-coeff-f32"])
+], ids=["mesh", "mesh-cpu", "resume", "checkpoint-dir"])
 def test_cli_refusals(case_file, tmp_path, capsys, argv, message):
     out = tmp_path / "out"
     assert main([case_file, "-o", str(out)] + argv) == 2
@@ -214,5 +217,80 @@ def test_coeff_dtype_f32_matches_jax():
     sf, df = Simulation(mt, torch.float32, device=CPU, use_coded=False).run()
     assert dt["iterations"] == df["iterations"]
     assert torch.equal(st.A, sf.A) and torch.equal(st.carry, sf.carry)
-    with pytest.raises(ValueError, match="bfloat16 state"):
-        Simulation(mt, torch.bfloat16, device=CPU, coeff_dtype=torch.float32)
+    # float32 coefficients at bfloat16 state run too, on the field tier
+    sb = Simulation(mt, torch.bfloat16, device=CPU, coeff_dtype=torch.float32)
+    assert sb.field_op.dtype == torch.float32 and sb.dtype == torch.bfloat16
+
+
+def _step1_gap(A, A64, tol):
+    """max |dA| / (tol * max |A_f64|)."""
+    A, A64 = host(A).astype(np.float64), host(A64).astype(np.float64)
+    return np.abs(A - A64).max() / (tol * np.abs(A64).max())
+
+
+BF16_CASE = lambda c: c.case_static(shape_xyz=(16, 14, 12), steps=2)
+
+
+def test_bf16_coeff_f32_matches_jax():
+    """Simulation(dtype=bfloat16, coeff_dtype=float32): the field tier at
+    float32 coefficients and bfloat16 state; step 1 within twice JAX's own
+    bfloat16 step-1 gap to the port's float64 step 1."""
+    mj = jcases.load_case(BF16_CASE(jcases))
+    mt = tcases.load_case(BF16_CASE(tcases))
+    tol = mt.solver.tolerance
+    j1, _ = JSimulation(mj, dtype=jnp.bfloat16).run(num_steps=1)
+    t64, _ = Simulation(mt, torch.float64, device=CPU).run(num_steps=1)
+    tsim = Simulation(mt, torch.bfloat16, device=CPU,
+                      coeff_dtype=torch.float32)
+    assert tsim.coded_op is None
+    assert tsim.field_op.dtype == torch.float32
+    t1, d1 = tsim.run(num_steps=1)
+    assert t1.A.dtype == t1.U.dtype == t1.carry.dtype == torch.bfloat16
+    assert not d1["unconverged_steps"] and d1["iterations"][0] > 0
+    gap_t, gap_j = _step1_gap(t1.A, t64.A, tol), _step1_gap(j1.A, t64.A, tol)
+    assert gap_t <= 2.0 * gap_j, (gap_t, gap_j)
+
+
+def test_cli_bf16_coeff_f32_matches_jax(tmp_path, capsys, monkeypatch):
+    """``--dtype bf16 --coeff-dtype f32``: the first output's A within
+    twice the JAX CLI's ``--dtype bf16`` gap to the port's float64 CLI
+    run."""
+    (tmp_path / "in.vxc").write_text(tcases.case_static(
+        shape_xyz=(16, 14, 12), steps=2, jump=0.001))
+    runs = {"jax": (jmain, ["--dtype", "bf16"]),
+            "port": (main, ["--dtype", "bf16", "--coeff-dtype", "f32",
+                            "--device", "cpu"]),
+            "f64": (main, ["--dtype", "f64", "--device", "cpu"])}
+    A = {}
+    for name, (cli, extra) in runs.items():
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        assert cli(["../in.vxc", "-o", "out", "-q"] + extra) == 0
+        A[name] = read_vtk_vectors(str(tmp_path / name / "out" /
+                                       "field_1.vtk"))["Field_A"]
+    capsys.readouterr()
+    tol = 5e-3
+    gap_t, gap_j = (_step1_gap(A[k], A["f64"], tol) for k in ("port", "jax"))
+    assert 0 < gap_t <= 2.0 * gap_j, (gap_t, gap_j)
+
+
+def test_use_pallas_false_matches_jax():
+    """use_pallas=False: the flat-roll tier at float32, as JAX's; with
+    use_coded=True it raises with JAX's wording."""
+    mj = jcases.load_case(BF16_CASE(jcases))
+    mt = tcases.load_case(BF16_CASE(tcases))
+    jsim = JSimulation(mj, dtype=jnp.float32, use_pallas=False)
+    assert jsim.pallas_op is None and jsim.coded_op is None
+    sj, dj = jsim.run()
+    tsim = Simulation(mt, torch.float32, device=CPU, use_pallas=False)
+    assert tsim.coded_op is None and tsim.field_op is None
+    assert tsim.op is tsim.system.op
+    st, dt = tsim.run()
+    assert not dj["unconverged_steps"] and not dt["unconverged_steps"]
+    assert st.A.dtype == torch.float32
+    scale = np.abs(host(sj.A)).max()
+    np.testing.assert_allclose(host(st.A), host(sj.A), rtol=0,
+                               atol=4 * mt.solver.tolerance * scale)
+    with pytest.raises(ValueError, match="incompatible with use_pallas=False"):
+        Simulation(mt, torch.float32, device=CPU, use_pallas=False,
+                   use_coded=True)

@@ -150,6 +150,38 @@ def test_bf16_coefficient_apply_matches_jax(name):
                                    rtol=0, atol=F32_ATOL * scale)
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_f32_coefficient_bf16_state_apply_matches_jax(name):
+    """float32 coefficients at bfloat16 state (the ``(float, bf16)``
+    kernels' plain versions) against the JAX package's jnp stencil apply on
+    the same bfloat16 inputs.  JAX promotes each product to float32 and
+    sums in float32; its result rounded once to bfloat16 lies within one
+    bfloat16 ulp of scale of the port's."""
+    sj, st, mt = _systems(name, torch.float32)
+    A, U = rand_fields(mt.shape_zyx, mt.cond_mask, 5)
+    x = TState(torch.from_numpy(A).to(torch.bfloat16),
+               torch.from_numpy(U).to(torch.bfloat16))
+    op = FieldStencilOperator.from_assembled(st)
+    assert op.dtype == torch.float32
+    yt = op.apply(x)
+    assert yt.A.dtype == yt.U.dtype == torch.bfloat16
+    yj = sj.op.apply(JState(*(jnp.asarray(v.float().numpy()).astype(
+        jnp.bfloat16) for v in (x.A, x.U))))
+    assert yj.A.dtype == jnp.float32
+    ref = [host(v).astype(np.float64) for v in (yj.A, yj.U)]
+    scale = max(np.abs(r).max() for r in ref)
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)    # bfloat16's at scale
+    for got, r in zip((yt.A, yt.U), ref):
+        got = host(got).astype(np.float64)
+        rounded = host(jnp.asarray(r, jnp.float32).astype(
+            jnp.bfloat16)).astype(np.float64)
+        np.testing.assert_allclose(got, rounded, rtol=0, atol=ulp)
+        # and most values are the same bfloat16: the port rounds the
+        # conductor box's A rows twice (field_a's store, then field_u's
+        # add), as JAX's kernels do; bfloat16 coefficients would move ~30%
+        assert (got != rounded).mean() < 0.1
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 def test_field_from_jax_arrays_round_trip(dtype):

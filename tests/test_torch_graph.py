@@ -5,8 +5,11 @@ one capture serves every later solve of a Simulation, the wrappers' launch
 counts add up what the graphs ran, a run's steps make no synchronizing
 call but the solves' (done, it) reads, the scratch a captured program's
 kernels use dies with its loop, and a checkpoint loads onto the card by
-default.  Every test here needs a CUDA
-device and nvcc and skips without them; the file imports no jax:
+default.  float64 runs graphed on the card and equals the CPU's float64
+run; a mesh of one rank over NCCL equals the unsharded field tier bit for
+bit with its dots' all-reduce inside the captured solve.  Every test here
+needs a CUDA device and nvcc and skips without them; the file imports no
+jax:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graph.py
 """
@@ -36,6 +39,11 @@ CONFIGS = {
     "field": (torch.float32, {"use_coded": False}),
     "mg": (torch.float32, {"precond": "mg"}),
     "bf16": (torch.bfloat16, {"dot_dtype": torch.float32}),
+    "bf16_coef_f32": (torch.bfloat16, {"dot_dtype": torch.float32,
+                                       "coeff_dtype": torch.float32}),
+    "f64": (torch.float64, {"dot_dtype": torch.float64}),
+    "f64_mg": (torch.float64, {"precond": "mg"}),
+    "flat_f32": (torch.float32, {"use_pallas": False}),
 }
 
 
@@ -147,3 +155,74 @@ def test_checkpoint_loads_onto_the_card(cuda, tmp_path):
     assert step == 1 and state.A.device == full.A.device
     nxt, _ = sim._step(state, sim.steps[1][0])
     assert torch.equal(nxt.A, full.A) and torch.equal(nxt.U, full.U)
+
+
+def test_float64_on_the_card_matches_the_cpu(cuda):
+    """float64 on the card (flat-roll operator, graphed) against the CPU's
+    float64 run: within 1e-9 of scale, the same iterations."""
+    f64 = torch.float64
+    st, d = Simulation(_model(), f64, f64, device=cuda).run()
+    sc, dc = Simulation(_model(), f64, f64, device="cpu").run()
+    assert d["iterations"] == dc["iterations"]
+    assert max(d["reads"]) == 0
+    scale = sc.A.abs().max().item()
+    assert (st.A.cpu() - sc.A).abs().max().item() <= 1e-9 * scale
+
+
+def test_mesh_of_one_rank_over_nccl(cuda, tmp_path):
+    """Simulation(mesh=make_mesh(1)) over NCCL: the sharded field tier at
+    world size 1 equals the unsharded use_coded=False run bit for bit, its
+    solve captured once with the all-reduce of its dots inside (the
+    all-reduce's Python calls stop after the capture), and a run makes no
+    synchronizing call."""
+    import torch.distributed as dist
+
+    from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        calls = []
+        real = mesh.all_reduce
+        object.__setattr__(mesh, "all_reduce",
+                           lambda t: calls.append(1) or real(t))
+        sim = Simulation(_model(), torch.float32, mesh=mesh)
+        ref = Simulation(_model(), torch.float32, device=cuda,
+                         use_coded=False)
+        sim.run(num_steps=1)                  # captures the solve
+        n = len(calls)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, d = sim.run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sr, dr = ref.run()
+        assert len(calls) == n and sim.captures == 1
+        assert d["iterations"] == dr["iterations"]
+        assert torch.equal(st.A, sr.A) and torch.equal(st.carry, sr.carry)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_batched_programs_equal_the_while_graph(cuda):
+    """The batched form a mesh of several ranks takes (setup, a batch of K
+    gated iterations and finish, each a graph of its own, one read of
+    (done, it) a batch) equals the WHILE-node graph bit for bit."""
+    from eddy_currents_3d_tpu_torch.solvers.bicgstab import K
+
+    runs = {}
+    for batched in (False, True):
+        sim = Simulation(_model(), torch.float32, device=cuda,
+                         use_coded=False)
+        nz, ny, nx = sim.model.shape_zyx
+        sim._loops[((3, nz, ny, nx), (nz, ny, nx))] = DeviceLoop(
+            itmax=sim.model.solver.itmax, pool=sim._pool, batched=batched,
+            **sim._solve_form())
+        runs[batched] = sim.run()
+        assert sim.captures == 1
+    (s0, d0), (s1, d1) = runs[False], runs[True]
+    assert d1["iterations"] == d0["iterations"]
+    assert torch.equal(s1.A, s0.A) and torch.equal(s1.U, s0.U)
+    assert max(d0["reads"]) == 0
+    assert d1["reads"] == [max(1, -(-n // K)) for n in d1["iterations"]]

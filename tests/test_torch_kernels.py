@@ -273,8 +273,12 @@ def test_simulation_runs_through_the_kernel(cuda):
     assert not diag["unconverged_steps"]
     assert coded_matvec.launches - n0 >= 2 * diag["total_iterations"]
     assert torch.isfinite(st.A).all() and torch.isfinite(st.carry).all()
-    with pytest.raises(ValueError, match="not ported to CUDA"):
-        Simulation(model, torch.float64, device=cuda)
+    # float64 runs on the card too, on the flat-roll operator: no kernel
+    n1 = coded_matvec.launches
+    sim64 = Simulation(model, torch.float64, device=cuda)
+    assert sim64.op is sim64.system.op and not sim64.use_pallas
+    _, d64 = sim64.run()
+    assert not d64["unconverged_steps"] and coded_matvec.launches == n1
 
 
 # ---- the split route: stencil kernel + conductor-slab kernel ----
@@ -470,8 +474,8 @@ def test_unported_cuda_options_raise(cuda):
     with pytest.raises(ValueError, match="precond='mg'"):
         Simulation(model, torch.float32, device=cuda, precond="mg",
                    use_coded=True)
-    with pytest.raises(ValueError, match="not ported to CUDA"):
-        Simulation(model, torch.float64, device=cuda, precond="jacobi")
+    with pytest.raises(ValueError, match="take no float64"):
+        Simulation(model, torch.float64, device=cuda, use_pallas=True)
     with pytest.raises(CodedUnsupported, match="no conducting"):
         Simulation(cases.load_case(_nocond_text()), torch.float32,
                    device=cuda, use_coded=True)
@@ -668,10 +672,49 @@ def test_field_u_bf16_state_matches_plain(cuda, name, route):
     _equal_bf16(y.U.cpu(), ref.U)
 
 
+@pytest.mark.parametrize("name", sorted(FIELD_CASES))
+def test_f32_coef_bf16_state_matches_plain(cuda, name):
+    """float32 coefficients at bfloat16 state (``coeff_dtype=float32``):
+    the (float, bf16) instantiations of field_a and field_u equal their
+    plain versions bit for bit, on the scalar route, each launch counted
+    as a bfloat16-state one with float32 coefficients."""
+    op, x = _field_setup(name, "f32", cuda, seed=2)
+    xb = _bf16_state(x)
+    assert op.ka.dtype == torch.float32
+    n0 = _route_counts(field_a) + (field_a.f32_coef.launches,)
+    y = field_a(op.ka, xb.A)
+    torch.cuda.synchronize()
+    assert _route_counts(field_a) + (field_a.f32_coef.launches,) == tuple(
+        a + b for a, b in zip(n0, (1, 1, 0, 1, 1)))
+    _equal_bf16(y, field_a_reference(op.ka, xb.A))
+    if op.box is None:
+        return
+    yA, rA = y.clone(), y.clone()
+    n0 = _route_counts(field_u) + (field_u.f32_coef.launches,)
+    yU = field_u(op, xb.A, xb.U, yA)
+    torch.cuda.synchronize()
+    assert _route_counts(field_u) + (field_u.f32_coef.launches,) == tuple(
+        a + b for a, b in zip(n0, (1, 1, 0, 1, 1)))
+    gout, uout = field_u_reference(op.gu, op.ku, op.da, op.box, xb.A, xb.U)
+    rA[_box(op)] += gout                    # float32 terms, one rounding
+    rU = torch.zeros_like(xb.U)
+    rU[_box(op)[1:]] = uout
+    _equal_bf16(yA, rA)
+    _equal_bf16(yU, rU)
+    # the whole apply against the same operator's plain apply on the CPU
+    cpu = dataclasses.replace(op, **{f: getattr(op, f).cpu()
+                                     for f in ("ka", "gu", "ku", "da")})
+    ref = cpu.apply(State(xb.A.cpu(), xb.U.cpu()))
+    yy = op.apply(xb)
+    _equal_bf16(yy.A.cpu(), ref.A)
+    _equal_bf16(yy.U.cpu(), ref.U)
+
+
 def test_field_wrappers_take_bf16_state_on_the_card(cuda, monkeypatch):
     """A bfloat16 CUDA tensor launches the bfloat16-state kernel and gets
-    bfloat16 back: no upcast, no plain version; mixed state dtypes, and
-    float32 coefficients with bfloat16 state, are refused."""
+    bfloat16 back: no upcast, no plain version; mixed state dtypes are
+    refused, and float32 coefficients with bfloat16 state take the scalar
+    (float, bf16) kernels, never the paired route."""
     from eddy_currents_3d_tpu_torch.ops import field_cuda
     op, x = _field_setup("static", "bf16", cuda)
     xb = _bf16_state(x)
@@ -684,10 +727,15 @@ def test_field_wrappers_take_bf16_state_on_the_card(cuda, monkeypatch):
     with pytest.raises(ValueError, match="bfloat16"):
         field_u(op, xb.A, x.U, y)                   # float32 U, bf16 A
     op32, _ = _field_setup("static", "f32", cuda)
-    with pytest.raises(ValueError, match="needs bfloat16 ka"):
-        field_a(op32.ka, xb.A)
-    with pytest.raises(ValueError, match="needs bfloat16 gu"):
-        field_u(op32, xb.A, xb.U, y)
+    n0 = _route_counts(field_a) + (field_a.f32_coef.launches,)
+    y32 = field_a(op32.ka, xb.A)
+    assert y32.dtype == torch.bfloat16 and not calls
+    assert _route_counts(field_a) + (field_a.f32_coef.launches,) == tuple(
+        a + b for a, b in zip(n0, (1, 1, 0, 1, 1)))
+    with pytest.raises(ValueError, match="needs bfloat16 coefficients"):
+        field_a(op32.ka, xb.A, route="paired")
+    with pytest.raises(ValueError, match="needs bfloat16 coefficients"):
+        field_u(op32, xb.A, xb.U, y32, route="paired")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         field_a(op.ka, x.A.half())
     # the route: the paired one only where it applies, bfloat16 state only

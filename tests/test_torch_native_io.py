@@ -144,3 +144,20 @@ def test_encoder_source_is_the_jax_packages():
     port = body("eddy_currents_3d_tpu_torch", "csrc", "ecio.cpp")
     assert len(port) > 200
     assert port == body("native", "ecio.cpp")
+
+
+def test_ilu0_engine_source_is_the_jax_packages():
+    """csrc/ilu0_host.cpp is a copy of native/ecsparse.cpp: with every
+    ``//`` comment and blank line taken out, the two sources are the same
+    code, so the two ILU(0) factorizations are the same program."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def code(*parts):
+        with open(os.path.join(root, *parts)) as f:
+            lines = (ln.split("//")[0].rstrip() for ln in f)
+            return [ln for ln in lines if ln]
+
+    port = code("eddy_currents_3d_tpu_torch", "csrc", "ilu0_host.cpp")
+    assert len(port) > 40
+    assert any("ec3d_ilu0" in ln for ln in port)
+    assert port == code("native", "ecsparse.cpp")

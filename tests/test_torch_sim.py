@@ -165,6 +165,27 @@ def test_run_writes_outputs(tmp_path):
         "field_1.vtk", "field_2.vtk", "src_1.vtk", "src_2.vtk"]
 
 
+@pytest.mark.parametrize("kw", [dict(dtype=torch.float64),
+                                dict(dtype=torch.float32, use_coded=False),
+                                dict(dtype=torch.float32)],
+                         ids=["f64", "f32-field", "f32-coded"])
+def test_step_system_and_solve_are_the_steps(kw):
+    """``step_system`` and ``solve`` are a step's right-hand side and
+    solve: the step's A is their solution zeroed on the surface, its U the
+    solution's, bit for bit, with the same iterations."""
+    model = tcases.load_case(tcases.case_static(shape_xyz=(12, 11, 10),
+                                                steps=3))
+    sim = ect.Simulation(model, device=CPU, **kw)
+    state = sim.init_state()
+    for t, _ in sim.steps[:2]:
+        res = sim.solve(*sim.step_system(state, t))
+        state, info = sim._step(state, t)
+        assert res.iterations == info.iterations > 0
+        assert torch.equal(torch.where(sim.system.bnd_a, 0.0, res.x.A),
+                           state.A)
+        assert torch.equal(res.x.U, state.U)
+
+
 def test_unported_options_raise(monkeypatch):
     model = tcases.load_case(tcases.case_static(shape_xyz=(12, 12, 12), steps=2))
     with pytest.raises(ValueError, match="dtype must be float32, bfloat16 or "
@@ -192,7 +213,9 @@ def test_import_loads_no_jax():
             "eddy_currents_3d_tpu_torch.ops.native, "
             "eddy_currents_3d_tpu_torch.io.native, "
             "eddy_currents_3d_tpu_torch.__main__, "
-            "eddy_currents_3d_tpu_torch.solvers.ilu0; "
+            "eddy_currents_3d_tpu_torch.solvers.ilu0, "
+            "eddy_currents_3d_tpu_torch.parallel.mesh, "
+            "eddy_currents_3d_tpu_torch.parallel.shard_op; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'eddy_currents_3d_tpu' not in sys.modules")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
