@@ -79,18 +79,23 @@ Phases, each printed before the last line:
 13. the block-sparse SpMM kernel (bsr_spmm, csrc/bsr_spmm.cu) against its
    plain version (gather + einsum, TF32 off) on the card: scipy random
    matrices on a grid that is not a multiple of the block size, (8, 8),
-   (4, 8) and (8, 16) blocks, k in {1, 4, 128}, float32 and float64; and
-   team7's exported operator (to_csr) as (8, 8) float32 blocks at k = 1
-   and k = 128.  Tolerance 3e-6 (float32) and 1e-12 (float64) of
-   max(|B|·|X|): both sides sum at most width·C products, in other orders.
-   For team7: device µs (torch.profiler) and CUDA-event µs over 50 calls,
-   the plain version's µs, bytes and bound, and the library call's µs
+   (4, 8) and (8, 16) blocks, k in {1, 4, 33, 128}, float32 and float64,
+   one product at least on each of the four routes (vec, warp, lanes at
+   the ragged k = 33, tiles); and team7's exported operator (to_csr) as
+   (8, 8) blocks at k = 1 (float32, vec route) and k = 128 (float32 and
+   float64, tiles route).  Tolerance 3e-6 (float32) and 1e-12 (float64)
+   of max(|B|·|X|): both sides sum at most width·C products, in other
+   orders.  For team7: the route each product took, that it repeats bit
+   for bit, device µs (torch.profiler) and CUDA-event µs over 50 calls,
+   the plain version's µs, bytes, operations and bound (FP32 FMAs at 67
+   TFLOP/s, FP64 at the card's 67 on its FP64 tensor cores) and the
+   share of it, and the library call's µs
    (torch.sparse_bsr_tensor of scipy's unpadded BSR @ X; the port never
-   calls it); the route each product took (vec at k = 1, lanes at 128);
-   and the library time of the coded and field operators at team7: the
-   exported CSR as torch.sparse_csr_tensor @ x, x in the reference's
-   [Ax|Ay|Az|U] layout, the same function as coded_matvec's apply and as
-   the field pair's;
+   calls it); the public k = 128 product's launches counted from 0 (the
+   tiles route's record); and the library time of the coded and field
+   operators at team7: the exported CSR as torch.sparse_csr_tensor @ x, x
+   in the reference's [Ax|Ay|Az|U] layout, the same function as
+   coded_matvec's apply and as the field pair's;
 14. the matrix-form solve at team7: two consecutive main-path solutions
    x_{k-1}, x_k (float32 on the card, warm_start="previous") flattened to
    the reference's [Ax|Ay|Az|U]; bsr_matvec(B, x_k) equals the coded
@@ -184,18 +189,22 @@ Phases, each printed before the last line:
 19. (field_a and field_u at bfloat16 state with float32 coefficients
    before phase 16, the rest after phase 18; none of it profiled but the
    first) float64, float32 coefficients at bfloat16 state and the z-slab
-   tier: the (float, bf16) instantiations of field_a and field_u against
-   their plain versions on team7, the small convection case and the odd
-   101x101x24 grid, bit for bit, on the scalar route, with times, bytes
-   and device µs at team7; team7 at float64 on the card (the flat-roll
+   tier: field_a and field_u at bfloat16 state with float32 coefficients
+   against their plain versions on team7, the small convection case and
+   the odd 101x101x24 grid, bit for bit: field_a on the paired route
+   (field_a_pairs_f32) on the even grids and the scalar (float, bf16)
+   kernel, both with the same bits, on the odd one the scalar kernel;
+   field_u on its scalar kernel; with times, bytes and device µs of each
+   field_a route and of field_u at team7; team7 at float64 on the card (the flat-roll
    operator, graphed, 5 steps) against phase 6's float64 CPU run within
    F64_GAP (1e-9) of scale with the same iterations and no kernel
    launched, and team7's exported matrix as float64 (8, 8) blocks through
    bsr_matvec against the flat-roll float64 apply; the float32 flat-roll
    tier (use_pallas=False) against the field tier within 4 tol scale after
    step 1; team7 at bfloat16 state with float32 coefficients, 5 steps,
-   every field launch a float32-coefficient one, within BF16_GAP of the
-   float64 CPU run after step 1; the per-shard field kernels with their
+   every field launch a float32-coefficient one (field_a's all paired,
+   field_u's all scalar), within BF16_GAP of the float64 CPU run after
+   step 1; the per-shard field kernels with their
    ghost-plane corrections in one process (team7 and 256x256x64 cut into
    2 and 4 z slabs, the ghosts handed over locally) against the global
    kernels within SLAB_TOL of scale; and Simulation(mesh=make_mesh(1))
@@ -208,15 +217,17 @@ is the card's name and power limit; the one before it the kernels' JSON
 record, each kernel's launches counted over the main path it serves
 (phase 5 for coded_matvec, phase 7's first split run for the split pair,
 phase 10's use_coded=False run for field_a and field_u, phase 14's BSR
-solve for bsr_spmm, phase 15b's 20-step dot_dtype=float32 run for the
-bfloat16-state field_a_bf16 and field_u_bf16, whose records also carry
-the route the run took, "kernel_route", and its launches on each route,
-"launches_by_route"; phase 19's 5-step run for field_a_f32coef and
-field_u_f32coef, bfloat16 state with float32 coefficients on the scalar
-route), with its bound (bytes over
-3.35 TB/s or operations over 67 TFLOP/s FP32, the larger) and the library
-call's time where one PyTorch call computes the same function; the last
-line is {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
+solve for bsr_spmm (the vec route at k = 1), phase 13's public product
+at team7, k = 128 for bsr_spmm_tiles (the tiles route; its float64
+product's numbers under "f64"), phase 15b's 20-step dot_dtype=float32
+run for the bfloat16-state field_a_bf16 and field_u_bf16, phase 19's
+5-step run for field_a_f32coef and field_u_f32coef, bfloat16 state with
+float32 coefficients; the field records also carry the route the run
+took, "kernel_route", and the bfloat16-state ones their launches on each
+route, "launches_by_route"), with its bound (bytes over 3.35 TB/s or
+operations over 67 TFLOP/s FP32, the larger) and the library call's time
+where one PyTorch call computes the same function; the last line is
+{"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
 
@@ -240,6 +251,8 @@ SOURCES = ("coded_matvec", "coded_split", "field_stencil", "bsr_spmm",
            "solve_graph", "ilu0_host", "ecio")
 HBM_PEAK = 3.35e12  # B/s, H100 SXM data sheet
 FP32_PEAK = 67e12   # FLOP/s outside the tensor cores, H100 SXM data sheet
+FP64_PEAK = 67e12   # FLOP/s, H100 SXM data sheet: IEEE float64 on the FP64
+                    # tensor cores, the card's peak for the type
 SPMM_TOL = {torch.float32: 3e-6, torch.float64: 1e-12}
 # bfloat16-state field kernels against their plain versions, x output scale:
 # both sum in float32 in one order, with no FMA, and round once to bfloat16,
@@ -269,6 +282,9 @@ KERNELS = {        # name: (source, TPU kernel it replaces)
                 "eddy_currents_3d_tpu/ops/pallas_stencil.py:206"),
     "bsr_spmm": ("eddy_currents_3d_tpu_torch/csrc/bsr_spmm.cu",
                  "eddy_currents_3d_tpu/ops/pallas_sparse.py:39"),
+    # bsr_spmm's tiles route (k >= 32): the TPU kernel's own width, 128
+    "bsr_spmm_tiles": ("eddy_currents_3d_tpu_torch/csrc/bsr_spmm.cu",
+                       "eddy_currents_3d_tpu/ops/pallas_sparse.py:39"),
     # the bfloat16-state instantiations of field_a and field_u
     "field_a_bf16": ("eddy_currents_3d_tpu_torch/csrc/field_stencil.cu",
                      "eddy_currents_3d_tpu/ops/pallas_stencil.py:136"),
@@ -368,10 +384,10 @@ def _busy(kernels, wall, iters):
             f"{dev_s / wall:.1%}")
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, peak=None):
     """(bound ms, "bytes" or "operations"): the larger of the bytes over
-    the HBM peak and the FP32 operations over the FP32 peak."""
-    t_b, t_o = nbytes / HBM_PEAK * 1e3, ops / FP32_PEAK * 1e3
+    the HBM peak and the operations over ``peak`` (FP32 by default)."""
+    t_b, t_o = nbytes / HBM_PEAK * 1e3, ops / (peak or FP32_PEAK) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -929,18 +945,21 @@ def _on_route(w, route, fn):
     return out
 
 
-def _field_recs(op, x, cells, route=None):
+def _field_recs(op, x, cells, route=None, u_route=None):
     """field_a (and field_u where ``op`` has a box) on the card against
     their plain versions on the same inputs: {kernel: record} with the
     error relative to the output scale, bytes per call and the times per
     call of kernel (CUDA events, 50 calls) and plain version.  ``route``:
-    the bfloat16-state route each launch takes (checked by the counts)."""
+    the bfloat16-state route each launch takes (checked by the counts);
+    ``u_route``: field_u's, where it differs."""
     from eddy_currents_3d_tpu_torch.ops.field import (field_a_reference,
                                                       field_u_reference)
     from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
 
     cs, ss = op.ka.element_size(), x.A.element_size()
     kw = {} if route is None else {"route": route}
+    u_route = route if u_route is None else u_route
+    ukw = {} if u_route is None else {"route": u_route}
     recs = {}
     # ---- field_a over the grid, the three A components ----
     ra = field_a_reference(op.ka, x.A)
@@ -962,7 +981,8 @@ def _field_recs(op, x, cells, route=None):
         rU = torch.zeros_like(x.U)
         rU[sl] = uout
         yA = ya.clone()
-        yU = _on_route(field_u, route, lambda: field_u(op, x.A, x.U, yA, **kw))
+        yU = _on_route(field_u, u_route,
+                       lambda: field_u(op, x.A, x.U, yA, **ukw))
         uscale = max(rU.abs().max().item(), scale)
         err = max(_maxabs(yA, rA), _maxabs(yU, rU))
         nbox = (z1 - z0) * (y1 - y0) * (x1 - x0)
@@ -974,7 +994,7 @@ def _field_recs(op, x, cells, route=None):
             # yA read and written, yU written (the wrapper's zero fill of
             # the rest of yU is a separate fill, not the kernel's)
             "bytes": nbox * (31 * cs + 11 * ss),
-            "times": (cuda_ms(lambda: field_u(op, x.A, x.U, buf, **kw), 50),
+            "times": (cuda_ms(lambda: field_u(op, x.A, x.U, buf, **ukw), 50),
                       cuda_ms(lambda: field_u_reference(
                           op.gu, op.ku, op.da, op.box, x.A, x.U), 4))}
     torch.cuda.synchronize()
@@ -1177,20 +1197,75 @@ def csr_library_ms(model, sysm, dev, csr=None):
     return cuda_ms(lambda: S @ x, 20), t_csr
 
 
+def _spmm_team7(label, B, x, S, dev):
+    """bsr_spmm at team7 on ``x``: its error against the plain version,
+    the route it took, that it repeats bit for bit, device µs
+    (torch.profiler) and CUDA-event µs over 50 calls, the plain version's
+    µs, bytes, operations and bound (FP32 or FP64 peak), and the library
+    call's µs (``S @ x``, torch.sparse_bsr_tensor; the port never calls
+    it)."""
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import (bsr_spmm,
+                                                         bsr_spmm_reference)
+
+    dtype, k = B.blocks.dtype, x.shape[1]
+    err, scale = _spmm_check(label, B, x)
+    y = bsr_spmm(B, x)
+    if not torch.equal(bsr_spmm(B, x), y):
+        raise AssertionError(f"bsr_spmm {label} does not repeat bit for bit")
+    isz = B.blocks.element_size()
+    nbytes = (B.blocks.numel() * isz + B.block_cols.numel() * 4
+              + (x.numel() + B.shape[0] * k) * isz)
+    ops = 2 * B.blocks.numel() * k
+    b_ms, b_by = bound(nbytes, ops, FP64_PEAK if isz == 8 else FP32_PEAK)
+    ms = cuda_ms(lambda: bsr_spmm(B, x), 50)
+    dev_ms = device_ms(lambda: bsr_spmm(B, x), "bsr_")
+    plain_ms = cuda_ms(lambda: bsr_spmm_reference(B, x), 5)
+    try:
+        lib_err = _maxabs(S @ x, y) / scale
+        lib_ms = cuda_ms(lambda: S @ x, 50)
+        lib = (f"{lib_ms * 1e3:.2f} us (|lib - kernel| {lib_err:.2e} of "
+               f"max(|B|·|X|))")
+    except Exception as e:  # the yardstick only: report, do not fail
+        lib_ms, lib = None, f"refused: {type(e).__name__}: {e}"
+    width = B.block_cols.shape[1]
+    route = bsr_spmm.route(B.block_shape, k, dtype, all(
+        t.data_ptr() % 16 == 0 for t in (B.blocks, x)), width)
+    want = "vec" if k == 1 else "tiles"
+    if route != want:
+        raise AssertionError(f"bsr_spmm {label} took the {route} route, not "
+                             f"{want}")
+    if route == "tiles":
+        say(f"[13] bsr_spmm {label}: tiles kernel "
+            f"{bsr_spmm.tiles_info(width, B.block_shape, k, dtype, dev)}")
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us"
+    share = "" if dev_ms is None else f", device {b_ms / dev_ms:.1%} of it"
+    say(f"[13] bsr_spmm {label} ({route} route): err {err / scale:.2e} of "
+        f"max(|B|·|X|), repeats bit for bit; device {dev_txt}, events "
+        f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; "
+        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP, bound "
+        f"{b_ms * 1e3:.2f} us by {b_by} (events {b_ms / ms:.1%} of it"
+        f"{share}); library {lib}")
+    return {"times": (ms, plain_ms), "max_abs_err": err,
+            "bound": (b_ms, b_by), "library_ms": lib_ms, "device_ms": dev_ms,
+            "route": route}
+
+
 def phase_bsr_vs_plain(model, sysm, dev):
     """bsr_spmm against its plain version, random matrices and team7's
     exported operator.  Returns (team7 BSR, scipy CSR, host setup seconds,
-    {k: record})."""
+    {1: the f32 k = 1 record, 128: f32 k = 128, "128 f64": f64 k = 128,
+    "tiles_launches": the public k = 128 product's launches counted from
+    0, "csr_ms": the coded and field operators' library time})."""
     import scipy.sparse as sp
 
     from eddy_currents_3d_tpu_torch.assembly.assemble import to_csr
-    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import (bsr_spmm,
-                                                         bsr_spmm_reference)
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import bsr_spmm
     from eddy_currents_3d_tpu_torch.ops.sparse import bsr_from_scipy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     worst = 0.0
     rng = np.random.default_rng(13)
+    routes = set()
     for seed, block_shape in enumerate(((8, 8), (4, 8), (8, 16))):
         a = sp.random(4099, 4099, density=0.002,
                       random_state=np.random.RandomState(seed)).tocsr()
@@ -1198,17 +1273,23 @@ def phase_bsr_vs_plain(model, sysm, dev):
         for dtype in (torch.float32, torch.float64):
             b = bsr_from_scipy(a, block_shape=block_shape, dtype=dtype,
                                device=dev)
+            width = b.blocks.shape[1]
             errs = []
-            for k in (1, 4, 128):
+            for k in (1, 4, 33, 128):
                 x = torch.from_numpy(rng.standard_normal((b.shape[1], k))).to(
                     dev, dtype)
                 err, scale = _spmm_check(f"random {block_shape} k={k}", b, x)
-                errs.append(f"k={k} ({bsr_spmm.route(block_shape, k, dtype)}) "
-                            f"{err / scale:.1e}")
+                route = bsr_spmm.route(block_shape, k, dtype,
+                                       x.data_ptr() % 16 == 0, width)
+                routes.add(route)
+                errs.append(f"k={k} ({route}) {err / scale:.1e}")
                 worst = max(worst, err) if dtype == torch.float32 else worst
             say(f"[13] bsr_spmm random 4099x4099 {block_shape} "
-                f"{str(dtype)[6:]}: width {b.blocks.shape[1]}, |kernel - "
+                f"{str(dtype)[6:]}: width {width}, |kernel - "
                 f"plain| / max(|B|·|X|): " + ", ".join(errs))
+    if routes != {"vec", "warp", "lanes", "tiles"}:
+        raise AssertionError(f"the random products took the routes {routes}, "
+                             "not all four")
 
     t0 = time.perf_counter()
     csr = to_csr(sysm, model)
@@ -1228,37 +1309,21 @@ def phase_bsr_vs_plain(model, sysm, dev):
     for k in (1, 128):
         x = torch.from_numpy(rng.standard_normal((B.shape[1], k))).to(
             dev, torch.float32)
-        err, scale = _spmm_check(f"team7 k={k}", B, x)
-        worst = max(worst, err)
-        nbytes = (B.blocks.numel() + B.block_cols.numel() + x.numel()
-                  + B.shape[0] * k) * 4
-        ops = 2 * B.blocks.numel() * k
-        b_ms, b_by = bound(nbytes, ops)
-        ms = cuda_ms(lambda: bsr_spmm(B, x), 50)
-        dev_ms = device_ms(lambda: bsr_spmm(B, x), "bsr_")
-        plain_ms = cuda_ms(lambda: bsr_spmm_reference(B, x), 5)
-        try:
-            lib_err = _maxabs(S @ x, bsr_spmm(B, x)) / scale
-            lib_ms = cuda_ms(lambda: S @ x, 50)
-            lib = (f"{lib_ms * 1e3:.2f} us (|lib - kernel| {lib_err:.2e} of "
-                   f"max(|B|·|X|))")
-        except Exception as e:  # the yardstick only: report, do not fail
-            lib_ms, lib = None, f"refused: {type(e).__name__}: {e}"
-        dev_txt = "not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us"
-        route = bsr_spmm.route((8, 8), k, torch.float32, all(
-            t.data_ptr() % 16 == 0 for t in (B.blocks, x)))
-        if route != ("vec" if k == 1 else "lanes"):
-            raise AssertionError(f"bsr_spmm team7 k={k} took the {route} "
-                                 f"route")
-        say(f"[13] bsr_spmm team7 k={k} ({route} route): "
-            f"err {err / scale:.2e} of max(|B|·|X|); device {dev_txt}, "
-            f"events {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; "
-            f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP, bound "
-            f"{b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.1%} of it); "
-            f"library {lib}")
-        recs[k] = {"times": (ms, plain_ms), "max_abs_err": worst,
-                   "bound": (b_ms, b_by), "library_ms": lib_ms,
-                   "device_ms": dev_ms}
+        recs[k] = _spmm_team7(f"team7 k={k}", B, x, S, dev)
+        worst = max(worst, recs[k]["max_abs_err"])
+        recs[k]["max_abs_err"] = worst
+    # the tiles route's own path: the public product at k = 128, counted
+    _, counts = counted(lambda: bsr_spmm(B, x))
+    recs["tiles_launches"] = counts["bsr_spmm"]
+    del S
+    B64 = bsr_from_scipy(csr, block_shape=(8, 8), dtype=torch.float64,
+                         device=dev)
+    x64 = torch.from_numpy(rng.standard_normal((B.shape[1], 128))).to(
+        dev, torch.float64)
+    recs["128 f64"] = _spmm_team7("team7 k=128 f64", B64, x64,
+                                  _sparse_bsr(csr, (8, 8), torch.float64,
+                                              dev), dev)
+    del B64, x64
     recs["csr_ms"], _ = csr_library_ms(model, sysm, dev, csr)
     say(f"[13] library yardstick of coded_matvec and the field pair at "
         f"team7: its CSR ({csr.nnz} nonzeros) as torch.sparse_csr_tensor "
@@ -1771,12 +1836,16 @@ def phase_flat_f32(model, dev):
 
 def phase_f32coef_kernels(grids, dev):
     """[19] field_a and field_u at bfloat16 state with float32
-    coefficients, the (float, bf16) instantiations, against their plain
-    versions on team7, the small convection case and the odd 101x101x24
-    grid, bit for bit, each launch on the scalar route and counted as a
-    float32-coefficient one; times, bytes and device µs (team7).  Returns
-    ({grid: {kernel: record}}, {kernel: device ms at team7})."""
-    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
+    coefficients against their plain versions on team7, the small
+    convection case and the odd 101x101x24 grid, bit for bit, each launch
+    counted as a float32-coefficient one: field_a on the route pair_route
+    chooses (paired on the even grids, scalar on the odd one) and, where
+    that is the paired one, on the scalar route too, both with the same
+    bits; field_u on its scalar kernel.  Times, bytes, and device µs of
+    each field_a route and of field_u at team7.  Returns ({(grid, route):
+    {kernel: record}}, {kernel: device ms at team7})."""
+    from eddy_currents_3d_tpu_torch.ops.field_cuda import (field_a, field_u,
+                                                           pair_route)
 
     out = {}
     for name, model, sysm in grids:
@@ -1784,25 +1853,40 @@ def phase_f32coef_kernels(grids, dev):
         x, _ = _inputs(model, dev, 2)
         xb = _bf16_state(x)
         op = _field_op(sysm, torch.float32)
-        n0 = (field_a.f32_coef.launches, field_u.f32_coef.launches)
-        recs = _field_recs(op, xb, nz * ny * nx, "scalar")
-        if field_a.f32_coef.launches == n0[0] or (
-                op.box is not None and field_u.f32_coef.launches == n0[1]):
-            raise AssertionError(f"{name}: no float32-coefficient launch "
-                                 "counted")
-        _say_field_recs(19, recs, f"{name} ({nx}x{ny}x{nz}, bf16 state, "
-                        f"f32 coefficients, scalar route)", BF16_TOL)
-        out[name] = recs
+        chosen = pair_route(model.shape_zyx, coef_bf16=False)
+        if chosen != ("scalar" if name == "odd" else "paired"):
+            raise AssertionError(f"{name}: pair_route chose {chosen} for "
+                                 "float32 coefficients")
+        for route in FIELD_ROUTES if chosen == "paired" else ("scalar",):
+            n0 = (field_a.f32_coef.launches, field_u.f32_coef.launches)
+            recs = _field_recs(op, xb, nz * ny * nx, route, "scalar")
+            if field_a.f32_coef.launches == n0[0] or (
+                    op.box is not None
+                    and field_u.f32_coef.launches == n0[1]):
+                raise AssertionError(f"{name}: no float32-coefficient "
+                                     "launch counted")
+            _say_field_recs(19, recs, f"{name} ({nx}x{ny}x{nz}, bf16 state, "
+                            f"f32 coefficients, field_a {route} route)",
+                            BF16_TOL)
+            out[(name, route)] = recs
+        if chosen == "paired" and not torch.equal(
+                field_a(op.ka, xb.A, route="paired"),
+                field_a(op.ka, xb.A, route="scalar")):
+            raise AssertionError(f"{name}: float32-coefficient field_a's "
+                                 "routes differ")
     model, sysm = grids[0][1], grids[0][2]
     x, _ = _inputs(model, dev, 2)
     xb = _bf16_state(x)
     op = _field_op(sysm, torch.float32)
     yb = field_a(op.ka, xb.A)
-    dev_ms = {"field_a_f32coef": device_ms(lambda: field_a(op.ka, xb.A),
-                                           "field_a"),
+    dev_ms = {"field_a_f32coef": device_ms(
+                  lambda: field_a(op.ka, xb.A, route="paired"), "field_a"),
+              "field_a_f32coef scalar": device_ms(
+                  lambda: field_a(op.ka, xb.A, route="scalar"), "field_a"),
               "field_u_f32coef": device_ms(
                   lambda: field_u(op, xb.A, xb.U, yb), "field_u")}
-    say("[19] device us per call at team7 (torch.profiler, 20 calls): "
+    say("[19] device us per call at team7 (torch.profiler, 20 calls; "
+        "field_a_f32coef on the paired route unless scalar is named): "
         + ", ".join(f"{k} " + ("not measured" if v is None
                                 else f"{v * 1e3:.2f}")
                     for k, v in dev_ms.items()))
@@ -1830,6 +1914,10 @@ def phase_f32coef_team7(model, dev, ref):
             counts["field_a"], counts["field_u"]):
         raise AssertionError(f"bf16/f32: field launches not all with f32 "
                              f"coefficients: {counts}")
+    if (counts["field_a_paired"], counts["field_u_scalar"]) != (
+            counts["field_a"], counts["field_u"]):
+        raise AssertionError(f"bf16/f32: field_a not all paired or field_u "
+                             f"not all scalar: {counts}")
     s = sim.init_state()
     tol = model.solver.tolerance
     gaps = []
@@ -2592,6 +2680,7 @@ def main() -> int:
                         split_recs["scale256"]["launches_per_apply_dots"], dev)
     phase_field_details(logs, dev)
     dev_times["bsr_spmm"] = bsr_recs[1]["device_ms"]
+    dev_times["bsr_spmm_tiles"] = bsr_recs[128]["device_ms"]
     s256 = recs["scale256"]
     csr256_ms, t_csr256 = csr_library_ms(s256["model"], s256["system"], dev)
     say(f"[16] library yardstick of the split pair at 256x256x64: its CSR "
@@ -2620,7 +2709,7 @@ def main() -> int:
     own = nz * ny * nx - slab
     f7 = field_recs[("team7", "f32")]
     b7 = bf16_recs[("team7", "paired")]
-    fc7 = f32c_recs["team7"]
+    fc7 = f32c_recs[("team7", "paired")]
     box7 = t7["system"].op.box
     nbox7 = (box7[1] - box7[0]) * (box7[3] - box7[2]) * (box7[5] - box7[4])
     zc0, zc1 = t7["op"].cond_z
@@ -2671,7 +2760,17 @@ def main() -> int:
         kernels.append(record(name, field_counts[name], rec,
                               library_ms=bsr_recs["csr_ms"]))
     kernels.append(record("bsr_spmm", bsr_launches, bsr_recs[1],
-                          library_ms=bsr_recs[1]["library_ms"]))
+                          library_ms=bsr_recs[1]["library_ms"],
+                          kernel_route="vec"))
+    # the tiles route at team7, k = 128: float32, with float64 beside it
+    f64 = bsr_recs["128 f64"]
+    kernels.append(record(
+        "bsr_spmm_tiles", bsr_recs["tiles_launches"], bsr_recs[128],
+        library_ms=bsr_recs[128]["library_ms"], kernel_route="tiles",
+        f64={"ms": f64["times"][0], "plain_ms": f64["times"][1],
+             "device_ms": f64["device_ms"], "bound_ms": f64["bound"][0],
+             "bound_by": f64["bound"][1], "max_abs_err": f64["max_abs_err"],
+             "library_ms": f64["library_ms"]}))
     # the bfloat16-state pair: the paired route's record (the one the main
     # path takes), the largest error over both routes and every grid, the
     # launches on each route, and the pair's bfloat16 CSR yardstick
@@ -2684,16 +2783,19 @@ def main() -> int:
             library_ms=bf16_lib_ms, kernel_route="paired",
             launches_by_route={r: bf16_counts[f"{name}_{r}"]
                                for r in FIELD_ROUTES}))
-    # bfloat16 state with float32 coefficients: the scalar (float, bf16)
-    # kernels, the largest error over phase 19's grids, the launches of
-    # phase 19's 5-step team7 run, and the f32 CSR @ x yardstick
-    for name in ("field_a", "field_u"):
+    # bfloat16 state with float32 coefficients: field_a's paired record
+    # (field_a_pairs_f32) and field_u's scalar one, the largest error over
+    # phase 19's grids and routes, the launches of phase 19's 5-step team7
+    # run on each route, and the f32 CSR @ x yardstick
+    for name, route in (("field_a", "paired"), ("field_u", "scalar")):
         rec = dict(fc7[name])
         rec["max_abs_err"] = max(r[name]["max_abs_err"]
                                  for r in f32c_recs.values() if name in r)
         kernels.append(record(
             f"{name}_f32coef", f32c_counts[f"{name}_f32coef"], rec,
-            library_ms=bsr_recs["csr_ms"], kernel_route="scalar"))
+            library_ms=bsr_recs["csr_ms"], kernel_route=route,
+            launches_by_route={r: f32c_counts[f"{name}_{r}"]
+                               for r in FIELD_ROUTES}))
     for k in kernels:
         d = dev_times[k["name"]]
         say(f"[16] {k['name']}: events {k['ms'] * 1e3:.2f} us, device "

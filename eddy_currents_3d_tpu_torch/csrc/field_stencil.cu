@@ -62,11 +62,12 @@
 // So bfloat16 state has a second route, field_a_pairs and field_u_pairs
 // below: two cells a thread as 4-byte words, consecutive pairs of a plane
 // a CTA, runs of planes marched with the z neighbours in registers, the
-// same sums bit for bit.  The one-cell kernels stay for odd widths,
-// unaligned tensors and float32 coefficients at bfloat16 state
-// (ops/field_cuda.py pair_route): that instantiation moves 40 B a cell for
-// field_a at L = 3 (28 of coefficients, 6 read, 6 written) and 146 B a box
-// cell for field_u (124 + 22), and is the one-cell kernel, unpaired.
+// same sums bit for bit.  field_a takes it with float32 coefficients too
+// (field_a_pairs_f32: each pair's coefficients one 8-byte float2), which
+// moves 40 B a cell at L = 3 (28 of coefficients, 6 read, 6 written).  The
+// one-cell kernels stay for odd widths, unaligned tensors and field_u at
+// float32 coefficients (ops/field_cuda.py pair_route; 146 B a box cell:
+// 124 + 22), where they measured 74% of the bound (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -236,11 +237,13 @@ field_u_kernel(const T* __restrict__ gu, const T* __restrict__ ku,
 // ---- bfloat16 state, two cells a thread: the paired route ----
 //
 // The same functions at bfloat16 state as field_a_kernel<bf16, bf16> and
-// field_u_kernel<bf16, bf16>, with the same products and sums per cell, in
-// the same order, each rounded apart (Rn), and one rounding to bfloat16
-// per output: their outputs equal the scalar kernels' bit for bit.  A
-// thread takes two cells along x, (x, x + 1) with x even, as one 4-byte
-// word (__nv_bfloat162) of each coefficient and state field; the CTA takes
+// field_u_kernel<bf16, bf16> (and, field_a_pairs_f32, as field_a_kernel<
+// float, bf16>), with the same products and sums per cell, in the same
+// order, each rounded apart (Rn), and one rounding to bfloat16 per output:
+// their outputs equal the scalar kernels' bit for bit.  A thread takes two
+// cells along x, (x, x + 1) with x even, as one 4-byte word
+// (__nv_bfloat162) of each state field and of each bfloat16 coefficient
+// field (an 8-byte float2 of a float32 one); the CTA takes
 // consecutive pairs of a plane in row-major order (no lane idles at any
 // width); the thread marches a run of planes, carrying the z neighbours
 // in registers.  A pair's outer x neighbours are the adjacent lanes' pairs
@@ -270,6 +273,11 @@ template <int H>
 __device__ __forceinline__ float half(u32 w) {
   return H ? hi(w) : lo(w);
 }
+// a pair's float32 coefficients: the even cell's (x), the odd one's (y)
+template <int H>
+__device__ __forceinline__ float half(float2 v) {
+  return H ? v.y : v.x;
+}
 
 // two sums, each rounded once to bfloat16 as store() rounds it, as a word
 __device__ __forceinline__ u32 pack(float a, float b) {
@@ -284,10 +292,11 @@ constexpr int kARun = 2;           // planes a field_a_pairs thread marches
 constexpr int kURun = 1;           // box planes a field_u_pairs thread marches
 
 // the 7-point stencil of one cell of a pair: H = 0 the even cell, 1 the
-// odd one; the neighbours as the scalar kernel reads them (0 beyond the
-// grid), in its order [0, -x, +x, -y, +y, -z, +z]
-template <int H>
-__device__ __forceinline__ float a_cell(const u32 (&k)[7], float c, float xm,
+// odd one; K the coefficients' pair (u32: bfloat16 words, float2: float32);
+// the neighbours as the scalar kernel reads them (0 beyond the grid), in
+// its order [0, -x, +x, -y, +y, -z, +z]
+template <int H, typename K>
+__device__ __forceinline__ float a_cell(const K (&k)[7], float c, float xm,
                                         float xp, u32 ym, u32 yp, u32 zm,
                                         u32 zp) {
   Rn acc = Rn(half<H>(k[0])) * c;
@@ -303,12 +312,13 @@ __device__ __forceinline__ float a_cell(const u32 (&k)[7], float c, float xm,
 // field_a over pairs: NL fields marched together (3: the operator's and the
 // V-cycle's three fields in one thread; 1: one field a thread).  The grid:
 // blockIdx.x the pairs of a plane, blockIdx.y runs of `run` planes,
-// blockIdx.z the group of NL fields.  ka, A and y as words: nx is even, so
-// a row holds nx / 2 whole pairs.
-template <int NL>
-__global__ void __launch_bounds__(kPairThreads)
-field_a_pairs(const u32* __restrict__ ka, const u32* __restrict__ A,
-              u32* __restrict__ y, int nx, int ny, int nz, int run) {
+// blockIdx.z the group of NL fields.  ka as pairs K (a bfloat16 word or a
+// float2), A and y as words: nx is even, so a row holds nx / 2 whole pairs.
+template <typename K, int NL>
+__device__ __forceinline__ void a_pairs(const K* __restrict__ ka,
+                                        const u32* __restrict__ A,
+                                        u32* __restrict__ y, int nx, int ny,
+                                        int nz, int run) {
   const int hx = nx >> 1;          // words a row
   const int hp = hx * ny;          // words a plane
   const int n = hp * nz;           // words a field
@@ -339,7 +349,7 @@ field_a_pairs(const u32* __restrict__ ka, const u32* __restrict__ A,
   for (int z = z0; z < z1; ++z) {
     plane_at(z + 1, ap);
     const int i = z * hp + w;
-    u32 k[7];
+    K k[7];
 #pragma unroll
     for (int o = 0; o < 7; ++o) k[o] = __ldg(ka + o * n + i);
 #pragma unroll
@@ -364,6 +374,22 @@ field_a_pairs(const u32* __restrict__ ka, const u32* __restrict__ A,
       ac[l] = ap[l];
     }
   }
+}
+
+template <int NL>
+__global__ void __launch_bounds__(kPairThreads)
+field_a_pairs(const u32* __restrict__ ka, const u32* __restrict__ A,
+              u32* __restrict__ y, int nx, int ny, int nz, int run) {
+  a_pairs<u32, NL>(ka, A, y, nx, ny, nz, run);
+}
+
+// float32 coefficients at bfloat16 state: the same sums as
+// field_a_kernel<float, bf16>, bit for bit
+template <int NL>
+__global__ void __launch_bounds__(kPairThreads)
+field_a_pairs_f32(const float2* __restrict__ ka, const u32* __restrict__ A,
+                  u32* __restrict__ y, int nx, int ny, int nz, int run) {
+  a_pairs<float2, NL>(ka, A, y, nx, ny, nz, run);
 }
 
 // How field_u_pairs reads and writes the grid-indexed state at a box pair
@@ -563,20 +589,28 @@ dim3 pair_grid(int pairs, int planes, int run, int groups = 1) {
 }
 
 // three fields a thread where L = 3 (the operator's A, the V-cycle's
-// fields), else one field a thread and the CTAs split the L fields
-int launch_a_pairs(const void* ka, const void* A, void* y, int L, int nx,
-                   int ny, int nz, cudaStream_t st) {
+// fields), else one field a thread and the CTAs split the L fields;
+// coef_bf16: ka as bfloat16 words, else as float2 pairs
+int launch_a_pairs(const void* ka, int coef_bf16, const void* A, void* y,
+                   int L, int nx, int ny, int nz, cudaStream_t st) {
   const int nl = L == 3 ? 3 : 1;
   const dim3 grid = pair_grid(nx / 2 * ny, nz, kARun, L / nl);
   const auto k = static_cast<const u32*>(ka);
+  const auto k2 = static_cast<const float2*>(ka);
   const auto a = static_cast<const u32*>(A);
   const auto o = static_cast<u32*>(y);
-  if (nl == 3) {
+  if (coef_bf16 && nl == 3) {
     field_a_pairs<3><<<grid, kPairThreads, 0, st>>>(k, a, o, nx, ny, nz,
                                                     kARun);
-  } else {
+  } else if (coef_bf16) {
     field_a_pairs<1><<<grid, kPairThreads, 0, st>>>(k, a, o, nx, ny, nz,
                                                     kARun);
+  } else if (nl == 3) {
+    field_a_pairs_f32<3><<<grid, kPairThreads, 0, st>>>(k2, a, o, nx, ny,
+                                                        nz, kARun);
+  } else {
+    field_a_pairs_f32<1><<<grid, kPairThreads, 0, st>>>(k2, a, o, nx, ny,
+                                                        nz, kARun);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -695,18 +729,22 @@ int field_u_launch(const void* gu, const void* ku, const void* da,
 }
 
 // The paired route at bfloat16 state (state_bf16 of field_a_launch and
-// field_u_launch, bfloat16 coefficients): the same outputs, bit for bit,
-// two cells a thread.  field_a_pairs_launch needs nx even and ka, A and y
-// 4-byte aligned; field_u_pairs_launch needs nx and bx even and every
-// pointer 4-byte aligned.  Both return cudaErrorInvalidValue for what they
-// do not take, else cudaGetLastError() after the launch.
-int field_a_pairs_launch(const void* ka, const void* A, void* y, int L,
-                         int nx, int ny, int nz, void* stream) {
+// field_u_launch): the same outputs, bit for bit, two cells a thread.
+// field_a_pairs_launch takes bfloat16 (coef_bf16) or float32 coefficients
+// and needs nx even, A and y 4-byte aligned and ka aligned to a pair of
+// coefficients (4 bytes, 8 at float32); field_u_pairs_launch takes
+// bfloat16 coefficients and needs nx and bx even and every pointer 4-byte
+// aligned.  Both return cudaErrorInvalidValue for what they do not take,
+// else cudaGetLastError() after the launch.
+int field_a_pairs_launch(const void* ka, int coef_bf16, const void* A,
+                         void* y, int L, int nx, int ny, int nz,
+                         void* stream) {
   if (L <= 0 || L > 65535 || nx <= 0 || nx % 2 || ny <= 0 || nz <= 0 ||
-      !aligned4({ka, A, y})) {
+      !aligned4({ka, A, y}) ||
+      (!coef_bf16 && reinterpret_cast<uintptr_t>(ka) % 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_a_pairs(ka, A, y, L, nx, ny, nz,
+  return launch_a_pairs(ka, coef_bf16, A, y, L, nx, ny, nz,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -733,8 +771,8 @@ int field_u_pairs_launch(const void* gu, const void* ku, const void* da,
 // launched with, and those threads.  which: 0-2 field_a_kernel <float,
 // float>, <bf16, float>, <bf16, bf16>; 3-5 field_u_kernel in the same
 // order; 6, 7 field_a_pairs<3>, <1>; 8, 9 field_u_pairs<kEven>, <kOdd>;
-// 10, 11 field_a_kernel and field_u_kernel <float, bf16>.  Returns a CUDA
-// error code.
+// 10, 11 field_a_kernel and field_u_kernel <float, bf16>; 12, 13
+// field_a_pairs_f32<3>, <1>.  Returns a CUDA error code.
 int field_info(int which, int* out) {
   constexpr int kScalar = kTX * kTY;
   switch (which) {
@@ -750,6 +788,8 @@ int field_info(int which, int* out) {
     case 9: return info_of(field_u_pairs<kOdd>, kPairThreads, out);
     case 10: return info_of(field_a_kernel<float, bf16>, kScalar, out);
     case 11: return info_of(field_u_kernel<float, bf16>, kScalar, out);
+    case 12: return info_of(field_a_pairs_f32<3>, kPairThreads, out);
+    case 13: return info_of(field_a_pairs_f32<1>, kPairThreads, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

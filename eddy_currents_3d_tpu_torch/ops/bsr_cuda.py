@@ -5,10 +5,10 @@ The kernel (``csrc/bsr_spmm.cu``) replaces the TPU kernel ``_kernel``
 (``pallas_sparse.py:39``, launched at ``:73``): ``A @ X`` for a padded
 block-ELL :class:`~.sparse.BSRMatrix` and a dense ``X`` (n_cols, k), float32
 or float64, summed in the blocks' type.  At k = 1 it is bound by the
-blocks' bytes, at k = 128 by FP32 FMAs (see the source note).  Three thread
+blocks' bytes, at k = 128 by FMAs (see the source note).  Four thread
 mappings serve it; :func:`spmm_route` picks one from the shape, k, the
-dtype and the operands' alignment, and the launch refuses a route that
-does not fit.
+dtype, the block-row width and the operands' alignment, and the launch
+refuses a route that does not fit.
 
 * :data:`bsr_spmm` takes ``(a, x)``; a CPU tensor goes to the plain version
   :func:`bsr_spmm_reference` (``a.matmat(x)``), a CUDA tensor launches the
@@ -29,23 +29,59 @@ import torch
 from .coded_cuda import CudaKernel, check_tensors, cuda_only, ptr
 from .sparse import BSRMatrix
 
-__all__ = ["bsr_spmm", "bsr_matvec", "bsr_spmm_reference", "spmm_route"]
+__all__ = ["bsr_spmm", "bsr_matvec", "bsr_spmm_reference", "spmm_route",
+           "tiles_smem"]
 
 _DTYPES = (torch.float32, torch.float64)
-_ROUTES = ("warp", "lanes", "vec")
+_ROUTES = ("warp", "lanes", "vec", "tiles")
+
+# The tiles route's CTA, as csrc/bsr_spmm.cu has it: TILE_ROWS block rows
+# (kTileRows), TILE_CHUNK columns (kChunk), at most TILE_ROWS_MAX rows a
+# block (kTR), TILE_STAGES windows of x blocks (kStages), within SMEM_MAX
+# bytes of shared memory (kSmemMax less the kernel's static kStaticSmem).
+TILE_ROWS = 4
+TILE_CHUNK = 128
+TILE_ROWS_MAX = 8
+TILE_STAGES = 2
+SMEM_MAX = 227 * 1024 - 256
+# Where tiles beat lanes (split_bench.py --spmm-sweep, PERF.md): block rows
+# of at most TILES_WIDTH slots from k = 32, and of at most
+# TILES_WIDTH_FULL where a CTA's chunk of TILE_CHUNK columns is full.  A
+# CTA's set-up grows as the square of the width and its shared memory
+# with it, while lanes' cost does not depend on the width.
+TILES_WIDTH = 50
+TILES_WIDTH_FULL = 100
+
+
+def tiles_smem(width: int, block_shape, k: int, itemsize: int = 4) -> int:
+    """The least shared memory, in bytes, of a tiles-route CTA over block
+    rows of ``width`` slots: csrc/bsr_spmm.cu ``tiles_shape`` at one x
+    block a window (4 ints and one block a slot of the group, and
+    TILE_STAGES x blocks)."""
+    R, C = block_shape
+    n = TILE_ROWS * width
+    xb = C * min(k, TILE_CHUNK) * itemsize
+    return 16 * n + n * R * C * itemsize + TILE_STAGES * xb
 
 
 def spmm_route(block_shape, k: int, itemsize: int = 4,
-               aligned: bool = True) -> str:
-    """The kernel's thread mapping for (R, C) blocks of ``itemsize``-byte
-    values and k columns (see the source note):
+               aligned: bool = True, width: int = 1) -> str:
+    """The kernel's thread mapping for block rows of ``width`` (R, C)
+    blocks of ``itemsize``-byte values and k columns (see the source
+    note):
 
     * ``"vec"``: k = 1 with 16-byte vector loads, where blocks, x and y are
       16-byte aligned (``aligned``), C is a multiple of the vector's
       16 / itemsize values and a block's vectors divide 32;
     * ``"warp"``: otherwise k < 32 with C a power of two <= 32 and
       R * C <= 256;
-    * ``"lanes"``: everything else."""
+    * ``"tiles"``: k >= 32 where rows of x and of a block are whole 16-byte
+      vectors (k and C times itemsize multiples of 16), R <= 8, R * C <=
+      256, the operands 16-byte aligned, a CTA's shared memory
+      (:func:`tiles_smem`) within the SM's and the block row at most
+      TILES_WIDTH slots wide (TILES_WIDTH_FULL at k >= TILE_CHUNK);
+    * ``"lanes"``: everything else: ragged k, unaligned views, large
+      blocks, wide block rows."""
     R, C = block_shape
     vl = 16 // itemsize
     p = R * (C // vl)
@@ -53,6 +89,12 @@ def spmm_route(block_shape, k: int, itemsize: int = 4,
         return "vec"
     if k < 32 and 0 < C <= 32 and C & (C - 1) == 0 and R * C <= 256:
         return "warp"
+    wide = TILES_WIDTH_FULL if k >= TILE_CHUNK else TILES_WIDTH
+    if (k >= 32 and aligned and k * itemsize % 16 == 0
+            and C * itemsize % 16 == 0 and R <= TILE_ROWS_MAX
+            and R * C <= 256 and width <= wide
+            and tiles_smem(width, block_shape, k, itemsize) <= SMEM_MAX):
+        return "tiles"
     return "lanes"
 
 
@@ -69,12 +111,30 @@ class _BsrSpmm(CudaKernel):
         lib.bsr_spmm_launch.argtypes = [vp, vp, vp, vp, ci, cll, ci, ci, ci,
                                         cll, ci, vp]
         lib.bsr_spmm_launch.restype = ci
+        lib.bsr_tiles_info.argtypes = [ci, ci, ci, ci, cll,
+                                       ctypes.POINTER(ci)]
+        lib.bsr_tiles_info.restype = ci
+
+    def tiles_info(self, width: int, block_shape, k: int,
+                   dtype=torch.float32, dev=None) -> dict:
+        """{registers, ctas_per_sm, smem_bytes, threads, window_blocks} of
+        the tiles route's kernel for block rows of ``width`` blocks of
+        ``block_shape`` and k columns."""
+        lib = self._library()
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(dev or torch.device("cuda")):
+            err = lib.bsr_tiles_info(int(dtype == torch.float64), width,
+                                     *block_shape, k, out)
+        if err != 0:
+            raise RuntimeError(f"bsr_tiles_info failed: CUDA error {err}")
+        return dict(zip(("registers", "ctas_per_sm", "smem_bytes",
+                         "threads", "window_blocks"), out))
 
     @staticmethod
     def route(block_shape, k: int, dtype=torch.float32,
-              aligned: bool = True) -> str:
+              aligned: bool = True, width: int = 1) -> str:
         """The thread mapping a launch takes (:func:`spmm_route`)."""
-        return spmm_route(block_shape, k, dtype.itemsize, aligned)
+        return spmm_route(block_shape, k, dtype.itemsize, aligned, width)
 
     def __call__(self, a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
         """``A @ X`` for dense ``X`` of shape (n_cols, k)."""
@@ -102,7 +162,7 @@ class _BsrSpmm(CudaKernel):
         lib, _ = self._ready(dev)
         y = torch.empty((n, k), dtype=dtype, device=dev)
         aligned = all(t.data_ptr() % 16 == 0 for t in (a.blocks, x, y))
-        route = self.route((R, C), k, dtype, aligned)
+        route = self.route((R, C), k, dtype, aligned, width)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.bsr_spmm_launch(ptr(a.block_cols), ptr(a.blocks), ptr(x),

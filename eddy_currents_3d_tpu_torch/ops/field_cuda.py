@@ -17,25 +17,24 @@ and round once to the state's dtype, and are bound by device-memory bytes
 A CPU tensor goes to the plain torch version (:func:`~.field.field_a_reference`,
 :func:`~.field.field_u_reference`); a CUDA tensor launches a kernel or
 raises: a bfloat16 tensor launches a bfloat16-state kernel, never an upcast
-around the float32 one.  At bfloat16 state with bfloat16 coefficients two
-hand-written kernels compute the same outputs bit for bit, and
-:func:`pair_route` picks one from the shape, the box and the tensors'
-alignment:
+around the float32 one.  At bfloat16 state two hand-written kernels compute
+the same outputs bit for bit, and :func:`pair_route` picks one from the
+shape, the box, the coefficients' dtype and the tensors' alignment:
 
 * ``"paired"``: two cells along x a thread, read and written as 4-byte
-  words, marching runs of planes with the z neighbours in registers
-  (``field_a_pairs``, ``field_u_pairs``), where the width is even;
-* ``"scalar"``: one cell a thread (the bfloat16 instantiation of the
-  float32-state kernels), for every other shape: odd widths such as the
-  V-cycle's coarse levels, unaligned views.  float32 coefficients at
-  bfloat16 state (``coeff_dtype=torch.float32``) always take it: the paired
-  kernels read bfloat16 coefficient words.
+  words (a float32 coefficient pair as one 8-byte float2), marching runs of
+  planes with the z neighbours in registers (``field_a_pairs``,
+  ``field_a_pairs_f32``, ``field_u_pairs``), where the width is even;
+* ``"scalar"``: one cell a thread (the bfloat16-state instantiations of
+  the one-cell kernels), for every other shape: odd widths such as the
+  V-cycle's coarse levels, unaligned views, and ``field_u`` with float32
+  coefficients (``coeff_dtype=torch.float32``).
 
 Each wrapper's ``launches`` counts its kernels' launches, and only those;
 ``bf16_state.launches`` counts the bfloat16-state launches among them,
 ``paired.launches`` and ``scalar.launches`` each route's, which add up to
 ``bf16_state.launches``, and ``f32_coef.launches`` those of the
-bfloat16-state launches that took float32 coefficients (all scalar).
+bfloat16-state launches that took float32 coefficients (on either route).
 """
 
 from __future__ import annotations
@@ -49,7 +48,8 @@ from ..utils.graph import counted
 from .coded_cuda import CudaKernel, check_tensors, cuda_only, ptr
 from .field import field_a_reference, field_u_reference
 
-__all__ = ["field_a", "field_u", "pair_route", "aligned4", "KERNEL_NAMES"]
+__all__ = ["field_a", "field_u", "pair_route", "aligned4", "pairs_aligned",
+           "KERNEL_NAMES"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _ROUTES = ("paired", "scalar")
@@ -58,17 +58,19 @@ _ROUTES = ("paired", "scalar")
 def pair_route(shape_zyx, box=None, aligned: bool = True,
                fields: int = 3, coef_bf16: bool = True) -> str:
     """The route of a bfloat16-state launch over a grid of ``shape_zyx``
-    (nz, ny, nx) with ``fields`` state fields: ``"paired"`` where the
-    coefficients are bfloat16 (``coef_bf16``), every tensor is 4-byte
-    aligned (``aligned``, :func:`aligned4`), every index fits 32 bits and
-    pairs of cells along x fill whole words: nx even for ``field_a``
-    (``box`` None), nx and the box's width even for ``field_u`` over
-    ``box`` (z0, z1, y0, y1, x0, x1); ``"scalar"`` otherwise."""
+    (nz, ny, nx) with ``fields`` state fields: ``"paired"`` where every
+    tensor is aligned to its pairs (``aligned``: :func:`pairs_aligned` for
+    ``field_a``, :func:`aligned4` for ``field_u``), every index fits 32
+    bits and pairs of cells along x fill whole words: nx even for
+    ``field_a`` (``box`` None, bfloat16 or float32 coefficients), nx and
+    the box's width even for ``field_u`` over ``box`` (z0, z1, y0, y1, x0,
+    x1), whose paired kernel takes bfloat16 coefficients only
+    (``coef_bf16``); ``"scalar"`` otherwise."""
     nz, ny, nx = shape_zyx
     even = nx % 2 == 0 and (box is None or (box[5] - box[4]) % 2 == 0)
     fits = max(fields, 15) * nz * ny * nx < 2 ** 31
-    return ("paired" if coef_bf16 and even and aligned and fits
-            else "scalar")
+    takes = coef_bf16 or box is None
+    return "paired" if takes and even and aligned and fits else "scalar"
 
 
 def aligned4(*tensors) -> bool:
@@ -77,6 +79,13 @@ def aligned4(*tensors) -> bool:
     block of the caching allocator, and the launch refuses any pointer
     that is not aligned."""
     return all(t.data_ptr() % 4 == 0 for t in tensors)
+
+
+def pairs_aligned(ka, *state) -> bool:
+    """Whether ``field_a``'s paired kernels can read ``ka`` and the
+    ``state`` tensors as pairs: ``ka`` from a boundary of two coefficients
+    (4 bytes in bfloat16, 8 in float32), the state on 4 bytes."""
+    return ka.data_ptr() % (2 * ka.element_size()) == 0 and aligned4(*state)
 
 
 def _chosen(asked, choice):
@@ -88,9 +97,9 @@ def _chosen(asked, choice):
         raise ValueError(f"route must be one of {_ROUTES} or None, got "
                          f"{asked!r}")
     if asked == "paired" and choice != "paired":
-        raise ValueError("the paired route needs bfloat16 coefficients, an "
-                         "even width, 4-byte aligned tensors and 32-bit "
-                         "indices")
+        raise ValueError("the paired route needs an even width, tensors "
+                         "aligned to their pairs, 32-bit indices and, for "
+                         "field_u, bfloat16 coefficients")
     return asked
 
 
@@ -135,6 +144,8 @@ KERNEL_NAMES = {
     "field_u_pairs<kOdd>": "field_u_pairsILi1E",
     "field_a_kernel<float, bf16>": "field_a_kernelIf13__nv_bfloat16E",
     "field_u_kernel<float, bf16>": "field_u_kernelIf13__nv_bfloat16E",
+    "field_a_pairs_f32<3>": "field_a_pairs_f32ILi3E",
+    "field_a_pairs_f32<1>": "field_a_pairs_f32ILi1E",
 }
 
 
@@ -155,7 +166,7 @@ class _FieldKernel(CudaKernel):
         lib.field_u_launch.argtypes = ([vp] * 3 + [ci] * 2 + [vp] * 4
                                        + [ci] * 9 + [vp])
         lib.field_u_launch.restype = ci
-        lib.field_a_pairs_launch.argtypes = [vp] * 3 + [ci] * 4 + [vp]
+        lib.field_a_pairs_launch.argtypes = [vp, ci, vp, vp] + [ci] * 4 + [vp]
         lib.field_a_pairs_launch.restype = ci
         lib.field_u_pairs_launch.argtypes = [vp] * 7 + [ci] * 9 + [vp]
         lib.field_u_pairs_launch.restype = ci
@@ -208,12 +219,13 @@ class _FieldA(_FieldKernel):
         y = torch.empty_like(A)
         if state_bf16:
             route = _chosen(route, pair_route((nz, ny, nx), None,
-                                              aligned4(ka, A), L, coef_bf16))
+                                              pairs_aligned(ka, A), L,
+                                              coef_bf16))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             if route == "paired":
-                err = lib.field_a_pairs_launch(ptr(ka), ptr(A), ptr(y), L,
-                                               nx, ny, nz, stream)
+                err = lib.field_a_pairs_launch(ptr(ka), coef_bf16, ptr(A),
+                                               ptr(y), L, nx, ny, nz, stream)
             else:
                 err = lib.field_a_launch(ptr(ka), coef_bf16, state_bf16,
                                          ptr(A), ptr(y), L, nx, ny, nz,

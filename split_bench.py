@@ -7,6 +7,7 @@ checkout's build against this tree's.
     python3 split_bench.py --parent DIR --steps [--out OUT]
     python3 split_bench.py --probe
     python3 split_bench.py --witness
+    python3 split_bench.py --spmm-sweep
 
 DIR is another checkout of the repository (an unpacked ``git archive`` of
 the parent commit, say, in a directory ``.gitignore`` lists; it needs
@@ -19,14 +20,18 @@ its times at team7), 14 (the matrix-form solve) and 16 (device µs per
 call, coded_slab's among them); then
 
 * the whole-plane matvec probe (``--probe``, below);
+* bsr_spmm's device µs at team7, k = 128, float64;
 * the field pair's device µs per call at team7 and scale256, at float32
-  state (float32 and bfloat16 coefficients) and at bfloat16 state (on
-  each route the build has), and each field kernel's registers, spills
-  and resident CTAs per SM;
+  state (float32 and bfloat16 coefficients) and at bfloat16 state with
+  bfloat16 and with float32 coefficients (on each route the build has:
+  at float32 coefficients the one it chooses and the scalar one), and
+  each field kernel's registers, spills and resident CTAs per SM;
 * team7 at bfloat16 state, dot_dtype float32, 20 steps without VTK after
   2 steps of warm-up: iterations per step (they follow the field kernels'
   bits) and ms per iteration, and each field wrapper's µs per call between
-  CUDA events at team7's bfloat16 state (the host's work included);
+  CUDA events at team7's bfloat16 state (the host's work included); and 5
+  steps of the same with float32 coefficients: iterations per step and a
+  hash of the last A and U;
 * profiles 20 team7 main-path steps (ms/iteration, device µs/iteration,
   busy share, device launches per iteration) and 5 split steps at
   256x256x64 (device µs per iteration, busy share);
@@ -34,10 +39,11 @@ call, coded_slab's among them); then
   coded_matvec (team7, convection, scale256: apply, apply_dots,
   apply_div; its dots apart), of the split pair (scale256 and convection:
   apply, apply_dots, apply_div), of bsr_spmm on team7's exported
-  operator at k = 1 and k = 128, and of the field pair (field_a's output,
-  field_u's yA and yU) on team7, convection and scale256 at each state,
-  with, where the build has routes, whether the bfloat16-state scalar
-  route gives the chosen route's bits;
+  operator at k = 1 and k = 128 (float32, and float64 at 128) and of
+  bsr_matvec there, and of the field pair (field_a's output, field_u's yA
+  and yU) on team7, convection and scale256 at each state, with, where
+  the build has routes, whether the bfloat16-state scalar route gives the
+  chosen route's bits;
 * takes step 1 of 256x256x64 on both routes, each with its kernels'
   fused dots and with float64 sums of the same products in their place,
   against the port's float64 step 1 on the CPU (computed by the first
@@ -62,6 +68,20 @@ apply_dots (the kernel, and every kernel the call launches) and apply_div,
 the same with every case code set to 0 (no decode), and coded_slab
 launched over the whole grid.  ``--witness`` alone takes this tree's
 step-1 witness (the last item above), for a change of the dots' order.
+``--spmm-sweep`` alone builds ``csrc/bsr_spmm.cu`` once for each setting
+in SPMM_SWEEP, from a copy with the tiles route's block rows a CTA (G,
+``kTileRows``), ring bytes (``kRingBytes``) and stages (``kStages``) set,
+and for its ablations edited out of the copy (1 without the FMAs, 2
+without the x copies, 4 without the block values' shared loads, 8 with
+the deduplication run twice), and times each at team7's exported
+operator, k = 128, float32 and float64 (device µs, torch.profiler, and
+CUDA events), with the lanes route beside them; every setting's output
+but the ablations' is held to the plain version and to the others' bit
+for bit (a row's sum order does not depend on the setting).  Then it
+times the source's tiles route against its lanes route (SPMM_CROSSOVER:
+team7's operator as (8, 8), (4, 8) and (3, 12) blocks at k = 32, 64 and
+128, and banded matrices with block rows 50, 100 and 200 blocks wide),
+each held to the plain version.
 
 Every process's full output goes to OUT (default split_bench_out/); the
 summary is printed.  Without a CUDA device the script exits 1.
@@ -316,7 +336,7 @@ def _step1_gaps(rec, dev, store):
 
 FIELD_STATES = {   # (coefficient dtype, state dtype) by name
     "f32": ("float32", "float32"), "bf16 coef": ("bfloat16", "float32"),
-    "bf16": ("bfloat16", "bfloat16")}
+    "bf16": ("bfloat16", "bfloat16"), "bf16 f32coef": ("float32", "bfloat16")}
 
 
 def _field_op_state(cs, rec, state, dev, seed):
@@ -332,10 +352,14 @@ def _field_op_state(cs, rec, state, dev, seed):
     return op, State(x.A.to(sd), x.U.to(sd))
 
 
-def _routes(field_a):
+def _routes(field_a, state="bf16"):
     """The bfloat16-state routes a build's field wrapper can be asked for
-    by name: none in a build before the paired route."""
-    return ("paired", "scalar") if hasattr(field_a, "paired") else ()
+    by name at ``state``: none in a build before the paired route; at
+    float32 coefficients the route the build chooses (None) and the scalar
+    one."""
+    if not hasattr(field_a, "paired") or FIELD_STATES[state][1] != "bfloat16":
+        return ()
+    return ("paired", "scalar") if state == "bf16" else (None, "scalar")
 
 
 def _field_hashes(cs, recs, dev):
@@ -358,10 +382,10 @@ def _field_hashes(cs, recs, dev):
             op, x = _field_op_state(cs, rec, state, dev, 11)
             ys = outputs(op, x)
             out[f"field {state} {name}"] = _digest(*ys)
-            if state == "bf16" and _routes(field_a):
+            if _routes(field_a, state):
                 other = outputs(op, x, route="scalar")
                 torch.cuda.synchronize()
-                out[f"field bf16 scalar == chosen {name}"] = all(
+                out[f"field {state} scalar == chosen {name}"] = all(
                     torch.equal(a, b) for a, b in zip(ys, other))
     return out
 
@@ -369,7 +393,8 @@ def _field_hashes(cs, recs, dev):
 def _field_times(cs, recs, dev):
     """Device µs per call (cs.device_ms, 20 calls) of field_a and field_u
     at team7 and scale256 at each state of FIELD_STATES; at bfloat16
-    state on each route the build has (else as it launches)."""
+    state on each route the build has (``_routes``; else as it
+    launches)."""
     from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
 
     out = {}
@@ -377,8 +402,7 @@ def _field_times(cs, recs, dev):
         for state in FIELD_STATES:
             op, x = _field_op_state(cs, recs[name], state, dev, 0)
             yb = field_a(op.ka, x.A)
-            routes = _routes(field_a) if state == "bf16" else ()
-            for route in routes or (None,):
+            for route in _routes(field_a, state) or (None,):
                 kw = {} if route is None else {"route": route}
                 tag = f"{state}{'' if route is None else ' ' + route} {name}"
                 for kname, fn in (
@@ -454,18 +478,53 @@ def _bf16_team7(cs, dev):
 
 
 def _bsr_hashes(B, dev):
-    """Hashes of bsr_spmm's outputs on B at k = 1 and k = 128."""
+    """Hashes of bsr_spmm's outputs on B at k = 1 and k = 128, and of
+    bsr_matvec's."""
     import numpy as np
     import torch
 
-    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import bsr_spmm
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import bsr_matvec, bsr_spmm
     rng = np.random.default_rng(9)
     out = {}
     for k in (1, 128):
         x = torch.from_numpy(rng.standard_normal((B.shape[1], k))).to(
             dev, torch.float32)
         out[f"bsr k={k} team7"] = _digest(bsr_spmm(B, x))
+    out["bsr_matvec team7"] = _digest(bsr_matvec(B, x[:, 0].contiguous()))
     return out
+
+
+def _bsr_f64(cs, csr, dev):
+    """bsr_spmm's device µs at team7, k = 128, float64 (cs.device_ms, 10
+    calls), and the hash of its output."""
+    import numpy as np
+    import torch
+
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import bsr_spmm
+    from eddy_currents_3d_tpu_torch.ops.sparse import bsr_from_scipy
+    B = bsr_from_scipy(csr, block_shape=(8, 8), dtype=torch.float64,
+                       device=dev)
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (B.shape[1], 128))).to(dev, torch.float64)
+    ms = cs.device_ms(lambda: bsr_spmm(B, x), "bsr_", 10)
+    return (None if ms is None else ms * 1e3), _digest(bsr_spmm(B, x))
+
+
+def _f32coef_team7(dev):
+    """team7 at bfloat16 state with float32 coefficients, dot_dtype
+    float32, 5 steps: iterations and the hash of the last A and U (the
+    field kernels' outputs to the last bit decide both)."""
+    import torch
+
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.testing.cases import (case_static,
+                                                          load_case)
+
+    model = load_case(case_static(shape_xyz=(102, 102, 24), steps=5))
+    sim = Simulation(model, torch.bfloat16, torch.float32, device=dev,
+                     coeff_dtype=torch.float32)
+    st, diag = sim.run()
+    return {"iterations": diag["iterations"], "hash": _digest(st.A, st.U)}
 
 
 def _team7_profile(cs, dev):
@@ -554,13 +613,16 @@ def child(root, tag, store, scale_runs=True):
            for k, r in bsr_recs.items() if k in (1, 128)}
     bsr_hashes = _bsr_hashes(B, dev)
     del B
+    bsr["128 f64"], bsr_hashes["bsr k=128 f64 team7"] = _bsr_f64(cs, csr, dev)
     probe = _matvec_probe(cs, t7, dev, logs.get("coded_matvec", ""))
     field_us = _field_times(cs, recs, dev)
     field_res = _field_resources(cs, logs.get("field_stencil", ""), dev)
     bf16 = _bf16_team7(cs, dev)
+    f32coef = _f32coef_team7(dev)
     print(f"[split_bench {tag}] field device us/call: {json.dumps(field_us)}; "
           f"resources {json.dumps(field_res)}; team7 bf16 20 steps "
-          f"{json.dumps(bf16)}", flush=True)
+          f"{json.dumps(bf16)}; team7 bf16 state, f32 coefficients, 5 steps "
+          f"{json.dumps(f32coef)}", flush=True)
     team7 = _team7_profile(cs, dev)
     print(f"[split_bench {tag}] team7 x 20 steps profiled: {team7}",
           flush=True)
@@ -575,8 +637,10 @@ def child(root, tag, store, scale_runs=True):
            "step1_gaps": gaps, "bsr_spmm": bsr, "probe": probe,
            "team7": team7, "field_us": field_us,
            "field_resources": field_res, "bf16_team7": bf16,
+           "f32coef_team7": f32coef,
            "hashes": dict(_hashes(cs, recs, dev), **bsr_hashes,
-                          **_field_hashes(cs, recs, dev))}
+                          **_field_hashes(cs, recs, dev),
+                          **{"f32coef team7 5 steps": f32coef["hash"]})}
     print(TAG + json.dumps(res), flush=True)
     return 0
 
@@ -615,6 +679,286 @@ def witness():
                                            dev, store))
     finally:
         shutil.rmtree(store, ignore_errors=True)
+    return 0
+
+
+# the tiles route's settings --spmm-sweep builds: (G, ring KB, stages,
+# ablation); the source's own first
+SPMM_SWEEP = ([(4, 32, 2, 0)]
+              + [(g, 32, 2, 0) for g in (1, 2, 8)]
+              + [(4, ring, 2, 0) for ring in (16, 64)]
+              + [(4, 32, st, 0) for st in (3, 4)]
+              + [(4, 32, 2, a) for a in (8, 1, 2, 3, 4, 6)])
+
+# each ablation bit's edits of csrc/bsr_spmm.cu (text, its replacement):
+# 1 drops the FMAs, 2 the x copies, 4 the block values' shared loads; the
+# outputs are then wrong.  Bit 8 (the deduplication run twice, same
+# outputs) is made by _sweep_source.
+_ABLATIONS = {
+    1: [("        tile_slot(brow + s * RC, stage + static_cast<int64_t>(u) "
+         "* xb, R, C,\n                  kc, lane, on0, on1, acc);\n", "")],
+    2: [("    if (lane == 0) mbar_expect(&full[q], nu * C * row_bytes);\n"
+         "    __syncwarp();\n",
+         "    if (lane == 0) mbar_expect(&full[q], 0);\n"
+         "    __syncwarp();\n    return;\n")],
+    4: [("      b[r] = r < R ? *reinterpret_cast<const float4*>(bk + r * C + "
+         "c0) : z;", "      b[r] = make_float4(1.f, 1.f, 1.f, 1.f);"),
+        ("      b[r] = r < R ? *reinterpret_cast<const double2*>(bk + r * C + "
+         "c0) : z;", "      b[r] = make_double2(1.0, 1.0);")],
+}
+
+
+def _sweep_source(g, ring, stages, ablate):
+    """csrc/bsr_spmm.cu's text with one setting of SPMM_SWEEP in place of
+    the source's constants; each edit must match exactly once."""
+    import re
+
+    from eddy_currents_3d_tpu_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "bsr_spmm.cu").read_text()
+    for pattern, value in ((r"constexpr int kTileRows = \d+;",
+                            f"constexpr int kTileRows = {g};"),
+                           (r"constexpr int kRingBytes = [\d *]+;",
+                            f"constexpr int kRingBytes = {ring * 1024};"),
+                           (r"constexpr int kStages = \d+;",
+                            f"constexpr int kStages = {stages};")):
+        src, n = re.subn(pattern, value, src)
+        if n != 1:
+            raise RuntimeError(f"{pattern} matched {n} times")
+    edits = [e for bit, es in _ABLATIONS.items() if ablate & bit for e in es]
+    if ablate & 8:
+        i = src.index("  // first occurrences of each column")
+        j = src.index("  // each row's slots by (rank, slot)")
+        dedup = src[i:j]
+        edits.append((dedup, dedup + "  if (tid == 0) n_distinct = 0;\n"
+                      "  __syncthreads();\n" + dedup))
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"ablation {ablate}: {old[:40]!r} matched "
+                               f"{src.count(old)} times")
+        src = src.replace(old, new)
+    return src
+
+
+def _sweep_build(out_dir, g, ring, stages, ablate):
+    """csrc/bsr_spmm.cu built with one setting of SPMM_SWEEP, from a
+    rewritten copy in ``out_dir``."""
+    from eddy_currents_3d_tpu_torch.ops import _build
+
+    stem = os.path.join(out_dir, f"bsr_spmm_g{g}_r{ring}_s{stages}_a{ablate}")
+    with open(stem + ".cu", "w") as f:
+        f.write(_sweep_source(g, ring, stages, ablate))
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", stem + ".so",
+           stem + ".cu"]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {(g, ring, stages, ablate)}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return stem + ".so", proc.stdout + proc.stderr
+
+
+def _bind_launch(lib):
+    """``lib``'s bsr_spmm_launch with its C signature."""
+    import ctypes
+
+    fn = lib.bsr_spmm_launch
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp, vp, vp, vp, ci, cll, ci, ci, ci, cll, ci, vp]
+    fn.restype = ci
+    return fn
+
+
+def _route_launcher(fn, B, x, out, dev):
+    """launch(route): ``fn`` (bsr_spmm_launch) on B @ x into ``out`` by
+    the route of that index (0 warp, 1 lanes, 2 vec, 3 tiles)."""
+    import torch
+
+    from eddy_currents_3d_tpu_torch.ops.coded_cuda import ptr
+
+    nbr, width, R, C = B.blocks.shape
+
+    def launch(route):
+        err = fn(ptr(B.block_cols), ptr(B.blocks), ptr(x), ptr(out),
+                 int(x.dtype == torch.float64), nbr, width, R, C, x.shape[1],
+                 route, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"route {route}: CUDA error {err}")
+    return launch
+
+
+def _banded_bsr(nbr, width, block_shape, dtype, dev, seed):
+    """A BSRMatrix of nbr block rows, each naming ``width`` distinct block
+    columns in ascending order from a band of 4 x width about its own, with
+    random blocks: a block row far wider than a 7-point stencil's."""
+    import numpy as np
+    import torch
+
+    from eddy_currents_3d_tpu_torch.ops.sparse import BSRMatrix
+
+    rng = np.random.default_rng(seed)
+    R, C = block_shape
+    lo = np.clip(np.arange(nbr) - 2 * width, 0, nbr - 4 * width)
+    cols = np.sort(np.stack([rng.choice(4 * width, width, replace=False)
+                             for _ in range(nbr)]), axis=1) + lo[:, None]
+    blocks = rng.standard_normal((nbr, width, R, C))
+    return BSRMatrix(
+        block_cols=torch.from_numpy(cols.astype(np.int32)).to(dev),
+        blocks=torch.from_numpy(blocks).to(dev, dtype),
+        shape=(nbr * R, nbr * C))
+
+
+# tiles against lanes, --spmm-sweep's second part: (label, matrix, k,
+# dtype); "team7" is team7's exported operator at that block shape
+SPMM_CROSSOVER = (
+    [(("team7", bs), k, "f32") for bs in ((8, 8), (4, 8), (3, 12))
+     for k in (32, 64, 128)]
+    + [(("team7", (8, 8)), k, "f64") for k in (32, 64)]
+    + [(("band", bs, w), k, "f32") for bs in ((8, 8), (4, 8))
+       for w in (50, 100, 200) for k in (32, 128)])
+
+
+def _spmm_crossover(cs, csr, dev):
+    """Each SPMM_CROSSOVER case on the product build's tiles and lanes
+    routes: both against the plain version, device µs of each."""
+    import numpy as np
+    import torch
+
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import (bsr_spmm,
+                                                         bsr_spmm_reference)
+    from eddy_currents_3d_tpu_torch.ops.sparse import bsr_from_scipy
+
+    fn = _bind_launch(bsr_spmm._ready(dev)[0])
+    dtypes = {"f32": torch.float32, "f64": torch.float64}
+    rng = np.random.default_rng(11)
+    mats = {}
+    for what, k, dt in SPMM_CROSSOVER:
+        dtype = dtypes[dt]
+        key = (what, dt)
+        if key not in mats:
+            mats.clear()
+            torch.cuda.empty_cache()
+            if what[0] == "team7":
+                mats[key] = bsr_from_scipy(csr, block_shape=what[1],
+                                           dtype=dtype, device=dev)
+            else:   # about team7's 1.69M slots
+                w = what[2]
+                mats[key] = _banded_bsr(1_690_000 // w, w, what[1], dtype,
+                                        dev, w)
+        B = mats[key]
+        nbr, width = B.block_cols.shape
+        x = torch.from_numpy(rng.standard_normal((B.shape[1], k))).to(
+            dev, dtype)
+        ref = bsr_spmm_reference(B, x)
+        scale = cs._abs_bound(B, x)
+        out = {}
+        for route, name in ((3, "tiles"), (1, "lanes")):
+            y = torch.empty_like(ref)
+            launch = _route_launcher(fn, B, x, y, dev)
+            launch(route)
+            torch.cuda.synchronize()
+            err = cs._maxabs(y, ref)
+            if not err <= cs.SPMM_TOL[dtype] * scale:
+                raise AssertionError(f"{what} k={k} {dt} {name}: {err:.3e} "
+                                     f"of scale {scale:.3e}")
+            ms = cs.device_ms(lambda: launch(route), f"bsr_{name}", 5)
+            out[name] = "not measured" if ms is None else f"{ms * 1e3:.2f}"
+            del y
+        wrapper = bsr_spmm.route(B.block_shape, k, dtype, True, width)
+        print(f"[crossover] {what[0]} {B.block_shape} width {width}, "
+              f"{nbr} block rows, k={k} {dt}: tiles {out['tiles']} us, "
+              f"lanes {out['lanes']} us (device); the wrapper takes "
+              f"{wrapper}", flush=True)
+        del x, ref
+
+
+def spmm_sweep():
+    """The tiles route at team7, k = 128, for each setting of SPMM_SWEEP;
+    then tiles against lanes on each case of SPMM_CROSSOVER."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    cs = _load_smoke(HERE)
+    if not torch.cuda.is_available():
+        print("split_bench: no CUDA device", file=sys.stderr)
+        return 1
+    from eddy_currents_3d_tpu_torch.assembly.assemble import to_csr
+    from eddy_currents_3d_tpu_torch.ops.bsr_cuda import (bsr_spmm,
+                                                         bsr_spmm_reference)
+    from eddy_currents_3d_tpu_torch.ops.sparse import bsr_from_scipy
+
+    dev = torch.device("cuda:0")
+    cs.phase_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="spmm_sweep_")
+    try:
+        with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+            built = list(pool.map(lambda v: _sweep_build(tmp, *v),
+                                  SPMM_SWEEP))
+        model, sysm, _ = cs._case_ops(_grids()[0][1], dev)
+        csr = to_csr(sysm, model)
+        rng = np.random.default_rng(9)
+        for dtype in (torch.float32, torch.float64):
+            B = bsr_from_scipy(csr, block_shape=(8, 8), dtype=dtype,
+                               device=dev)
+            nbr, width = B.block_cols.shape
+            x = torch.from_numpy(rng.standard_normal((B.shape[1], 128))).to(
+                dev, dtype)
+            ref = bsr_spmm_reference(B, x)
+            err0, scale = cs._spmm_check(f"sweep {dtype}", B, x)
+            lanes = torch.empty_like(ref)
+            first, same = None, True
+            line = []
+            for (g, ring, stages, ablate), (path, log) in zip(SPMM_SWEEP,
+                                                              built):
+                fn = _bind_launch(ctypes.CDLL(path))
+                y = torch.empty_like(ref)
+                launch = _route_launcher(fn, B, x, y, dev)
+                launch(3)
+                torch.cuda.synchronize()
+                if ablate in (0, 8):
+                    err = cs._maxabs(y, ref)
+                    if not err <= cs.SPMM_TOL[dtype] * scale:
+                        raise AssertionError(f"{(g, ring, stages)}: "
+                                             f"{err:.3e}")
+                    if first is None:
+                        first = y
+                    same = same and torch.equal(y, first)
+                dev_ms = cs.device_ms(lambda: launch(3), "bsr_tiles", 10)
+                ev_ms = cs.cuda_ms(lambda: launch(3), 20)
+                regs = cs._ptxas(log, "bsr_tiles_kernelI"
+                                 + ("d" if dtype == torch.float64 else "f"))
+                what = {0: "", 1: ", no FMAs", 2: ", no x copies",
+                        3: ", neither", 4: ", no block loads",
+                        6: ", no x copies nor block loads",
+                        8: ", deduplication twice"}[ablate]
+                line.append(f"G={g} ring {ring} KB, {stages} stages{what}: "
+                            "device " + ("not measured" if dev_ms is None
+                                         else f"{dev_ms * 1e3:.2f}")
+                            + f" us, events {ev_ms * 1e3:.2f} us; {regs}")
+                if (g, ring, stages, ablate) == SPMM_SWEEP[0]:
+                    to_lanes = _route_launcher(fn, B, x, lanes, dev)
+                    to_lanes(1)
+                    lanes_ms = cs.device_ms(lambda: to_lanes(1),
+                                            "bsr_lanes", 3)
+            dflt = bsr_spmm(B, x)
+            torch.cuda.synchronize()
+            print(f"[sweep] team7 k=128 {str(dtype)[6:]}: {nbr} block rows "
+                  f"of width {width}; err of the wrapper's "
+                  f"{bsr_spmm.route((8, 8), 128, dtype, True, width)} route "
+                  f"{err0 / scale:.2e} of max(|B|·|X|); every setting bit "
+                  f"for bit: {same}, with the wrapper's: "
+                  f"{torch.equal(dflt, first)}; lanes route "
+                  + ("not measured" if lanes_ms is None
+                     else f"{lanes_ms * 1e3:.2f} us"), flush=True)
+            for ln in line:
+                print(f"[sweep]   {ln}", flush=True)
+            del B, x, ref, lanes, first
+        _spmm_crossover(cs, csr, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return 0
 
 
@@ -683,6 +1027,14 @@ def steps(parent, out_dir):
     return 0
 
 
+def _bsr_us(run, key):
+    """A child's bsr_spmm device µs at team7 for ``key`` (its JSON keys):
+    "128" (float32, a record) or "128 f64" (µs)."""
+    rec = run["bsr_spmm"].get(key)
+    us = rec.get("device_us") if isinstance(rec, dict) else rec
+    return "not measured" if us is None else f"{us:.2f}"
+
+
 def _run(args, log):
     """Run this script with ``args`` in a new process; its output goes to
     ``log`` and its TAG line is returned."""
@@ -714,6 +1066,8 @@ def main():
                     help="only the whole-plane matvec probe of this tree")
     ap.add_argument("--witness", action="store_true",
                     help="only the step-1 witness of this tree")
+    ap.add_argument("--spmm-sweep", action="store_true",
+                    help="only the tiles route's settings at team7, k = 128")
     ap.add_argument("--steps", action="store_true",
                     help="with --parent: only team7's 20 main-path steps, "
                     "eager (and graphed where the build has it)")
@@ -730,6 +1084,8 @@ def main():
         return probe()
     if a.witness:
         return witness()
+    if a.spmm_sweep:
+        return spmm_sweep()
     if not a.parent:
         ap.error("--parent DIR is required")
     import torch
@@ -777,6 +1133,14 @@ def main():
     its = [r["bf16_team7"]["iterations"] for r in runs]
     print(f"[summary] team7 bf16 iterations per step equal in every run: "
           f"{all(i == its[0] for i in its)} ({its[0]})", flush=True)
+    its = [r["f32coef_team7"]["iterations"] for r in runs]
+    print(f"[summary] team7 bf16/f32-coefficient iterations per step equal "
+          f"in every run: {all(i == its[0] for i in its)} ({its[0]})",
+          flush=True)
+    for key in ("128", "128 f64"):
+        print(f"[summary] bsr_spmm team7 k={key} device us in run order "
+              f"(parent, change, change, parent): "
+              + ", ".join(_bsr_us(r, key) for r in runs), flush=True)
     for key in ("ms_per_iteration", "field_a_event_us", "field_u_event_us"):
         print(f"[summary] team7 bf16 {key} in run order (parent, change, "
               f"change, parent): " + ", ".join(

@@ -5,9 +5,12 @@ box and the tensors' alignment.
 * The paired route (two cells along x a thread, as 4-byte words) serves
   the shapes of the records: team7 (102x102x24, box x0 = 1) and scale256
   (256x256x64), both for ``field_a`` and for ``field_u`` over the box.
+* float32 coefficients at bfloat16 state pair in ``field_a`` there too,
+  and keep ``field_u`` on its one-cell kernel.
 * The one-cell kernels serve the rest: an odd nx or box width, the
-  V-cycle's odd coarse levels (51 and 13 at team7), unaligned views and
-  grids whose indices would not fit 32 bits.
+  V-cycle's odd coarse levels (51 and 13 at team7), unaligned views (a
+  float32 ``ka`` off an 8-byte boundary too) and grids whose indices would
+  not fit 32 bits.
 * A route asked for by name is refused where it does not apply.
 
 The kernels themselves, on both routes, are held against their plain
@@ -20,7 +23,8 @@ import torch
 
 from eddy_currents_3d_tpu_torch.assembly.assemble import assemble_operator
 from eddy_currents_3d_tpu_torch.ops import field_cuda
-from eddy_currents_3d_tpu_torch.ops.field_cuda import aligned4, pair_route
+from eddy_currents_3d_tpu_torch.ops.field_cuda import (aligned4, pair_route,
+                                                       pairs_aligned)
 from eddy_currents_3d_tpu_torch.testing import cases
 
 RECORD_GRIDS = {"team7": (102, 102, 24), "scale256": (256, 256, 64)}
@@ -46,6 +50,19 @@ def test_the_records_shapes_take_the_paired_route(name):
     assert pair_route(shape) == "paired"                   # field_a, L = 3
     assert pair_route(shape, fields=1) == "paired"         # field_a, L = 1
     assert pair_route(shape, box) == "paired"              # field_u
+
+
+@pytest.mark.parametrize("name", sorted(RECORD_GRIDS))
+def test_f32_coefficients_pair_in_field_a_only(name):
+    """float32 coefficients at bfloat16 state: field_a's paired kernel
+    reads them as float2 pairs; field_u's reads bfloat16 words only."""
+    model = cases.load_case(cases.case_static(shape_xyz=RECORD_GRIDS[name],
+                                              steps=2))
+    box = _conductor_box(model)
+    shape = model.shape_zyx
+    assert pair_route(shape, coef_bf16=False) == "paired"
+    assert pair_route(shape, fields=1, coef_bf16=False) == "paired"
+    assert pair_route(shape, box, coef_bf16=False) == "scalar"
 
 
 def test_conductor_box_is_the_assembled_one():
@@ -91,6 +108,25 @@ def test_unaligned_views_take_the_scalar_route():
     assert not aligned4(whole, view)
     assert pair_route((24, 102, 102), None, aligned4(whole)) == "paired"
     assert pair_route((24, 102, 102), None, aligned4(view)) == "scalar"
+
+
+@pytest.mark.parametrize("coef", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_coefficients_off_a_pair_take_the_scalar_route(coef):
+    """A ka view one coefficient past a pair's boundary: 4 bytes off 8 in
+    float32, which the float2 loads refuse, and 2 bytes off 4 in bfloat16;
+    a view two coefficients on starts a pair again."""
+    base = torch.zeros(7 * 24 * 102 * 102 + 2, dtype=coef)
+    A = torch.zeros(3, 24, 102, 102, dtype=torch.bfloat16)
+    whole = base[:-2].view(7, 24, 102, 102)
+    one = base[1:-1].view(7, 24, 102, 102)
+    two = base[2:].view(7, 24, 102, 102)
+    f32 = coef == torch.float32
+    route = lambda ka: pair_route((24, 102, 102), None,
+                                  pairs_aligned(ka, A), coef_bf16=not f32)
+    assert aligned4(one) == f32        # float32: a word, not a pair
+    assert route(whole) == "paired" and route(one) == "scalar"
+    assert route(two) == "paired"
 
 
 def test_indices_past_32_bits_take_the_scalar_route():

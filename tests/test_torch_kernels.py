@@ -42,11 +42,12 @@ from eddy_currents_3d_tpu_torch.ops.field import (FieldStencilOperator,
                                                   field_a_reference,
                                                   field_u_reference)
 from eddy_currents_3d_tpu_torch.ops.field_cuda import (aligned4, field_a,
-                                                       field_u, pair_route)
+                                                       field_u, pair_route,
+                                                       pairs_aligned)
 from eddy_currents_3d_tpu_torch.ops.bsr_cuda import (bsr_matvec, bsr_spmm,
                                                      bsr_spmm_reference)
 from eddy_currents_3d_tpu_torch.ops.coded_cuda import whole_plan
-from eddy_currents_3d_tpu_torch.ops.sparse import bsr_from_scipy
+from eddy_currents_3d_tpu_torch.ops.sparse import BSRMatrix, bsr_from_scipy
 from eddy_currents_3d_tpu_torch.testing import cases
 
 pytestmark = pytest.mark.cuda
@@ -672,26 +673,55 @@ def test_field_u_bf16_state_matches_plain(cuda, name, route):
     _equal_bf16(y.U.cpu(), ref.U)
 
 
+def _off_pair(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    boundary of two (float32: 4 bytes off 8)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert not pairs_aligned(out)
+    return out
+
+
+@pytest.mark.parametrize("route", BF16_ROUTES)
 @pytest.mark.parametrize("name", sorted(FIELD_CASES))
-def test_f32_coef_bf16_state_matches_plain(cuda, name):
+def test_f32_coef_bf16_state_matches_plain(cuda, name, route):
     """float32 coefficients at bfloat16 state (``coeff_dtype=float32``):
-    the (float, bf16) instantiations of field_a and field_u equal their
-    plain versions bit for bit, on the scalar route, each launch counted
-    as a bfloat16-state one with float32 coefficients."""
+    field_a on the paired route (field_a_pairs_f32) where the width is
+    even, on the one-cell (float, bf16) kernel asked for by name, on odd
+    widths and for an unaligned state or ka; field_u on its one-cell kernel.
+    Each equals its plain version bit for bit, both field_a routes give the
+    same bits, and each launch is counted on its route and as a
+    float32-coefficient one."""
     op, x = _field_setup(name, "f32", cuda, seed=2)
     xb = _bf16_state(x)
     assert op.ka.dtype == torch.float32
+    ka, A = op.ka, xb.A
+    if route == "unaligned":
+        ka, A = _off_pair(ka), _unaligned(A)
+    took = ("paired" if route == "auto" and op.shape_zyx[2] % 2 == 0
+            else "scalar")
+    if route != "scalar":
+        assert pair_route(op.shape_zyx, None, pairs_aligned(ka, A),
+                          coef_bf16=False) == took
+    asked = "scalar" if route == "scalar" else None
     n0 = _route_counts(field_a) + (field_a.f32_coef.launches,)
-    y = field_a(op.ka, xb.A)
+    y = field_a(ka, A, route=asked)
     torch.cuda.synchronize()
+    step = (1, 1, 1, 0, 1) if took == "paired" else (1, 1, 0, 1, 1)
     assert _route_counts(field_a) + (field_a.f32_coef.launches,) == tuple(
-        a + b for a, b in zip(n0, (1, 1, 0, 1, 1)))
+        a + b for a, b in zip(n0, step))
     _equal_bf16(y, field_a_reference(op.ka, xb.A))
+    assert torch.equal(field_a(ka, A, route=asked), y)      # repeats
+    assert torch.equal(field_a(ka, A, route="scalar"), y)   # the other route
+    if route == "unaligned":           # each misaligned operand alone
+        assert torch.equal(field_a(op.ka, A), y)
+        assert torch.equal(field_a(ka, xb.A), y)
     if op.box is None:
         return
     yA, rA = y.clone(), y.clone()
     n0 = _route_counts(field_u) + (field_u.f32_coef.launches,)
-    yU = field_u(op, xb.A, xb.U, yA)
+    yU = field_u(op, A, xb.U, yA, route=asked)
     torch.cuda.synchronize()
     assert _route_counts(field_u) + (field_u.f32_coef.launches,) == tuple(
         a + b for a, b in zip(n0, (1, 1, 0, 1, 1)))
@@ -701,6 +731,8 @@ def test_f32_coef_bf16_state_matches_plain(cuda, name):
     rU[_box(op)[1:]] = uout
     _equal_bf16(yA, rA)
     _equal_bf16(yU, rU)
+    if route != "auto":
+        return
     # the whole apply against the same operator's plain apply on the CPU
     cpu = dataclasses.replace(op, **{f: getattr(op, f).cpu()
                                      for f in ("ka", "gu", "ku", "da")})
@@ -713,8 +745,9 @@ def test_f32_coef_bf16_state_matches_plain(cuda, name):
 def test_field_wrappers_take_bf16_state_on_the_card(cuda, monkeypatch):
     """A bfloat16 CUDA tensor launches the bfloat16-state kernel and gets
     bfloat16 back: no upcast, no plain version; mixed state dtypes are
-    refused, and float32 coefficients with bfloat16 state take the scalar
-    (float, bf16) kernels, never the paired route."""
+    refused, and float32 coefficients with bfloat16 state take the paired
+    route in field_a (field_a_pairs_f32) and the scalar (float, bf16)
+    kernel in field_u, which refuses the paired route by name."""
     from eddy_currents_3d_tpu_torch.ops import field_cuda
     op, x = _field_setup("static", "bf16", cuda)
     xb = _bf16_state(x)
@@ -731,10 +764,9 @@ def test_field_wrappers_take_bf16_state_on_the_card(cuda, monkeypatch):
     y32 = field_a(op32.ka, xb.A)
     assert y32.dtype == torch.bfloat16 and not calls
     assert _route_counts(field_a) + (field_a.f32_coef.launches,) == tuple(
-        a + b for a, b in zip(n0, (1, 1, 0, 1, 1)))
-    with pytest.raises(ValueError, match="needs bfloat16 coefficients"):
-        field_a(op32.ka, xb.A, route="paired")
-    with pytest.raises(ValueError, match="needs bfloat16 coefficients"):
+        a + b for a, b in zip(n0, (1, 1, 1, 0, 1)))
+    assert torch.equal(field_a(op32.ka, xb.A, route="paired"), y32)
+    with pytest.raises(ValueError, match="field_u, bfloat16 coefficients"):
         field_u(op32, xb.A, xb.U, y32, route="paired")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         field_a(op.ka, x.A.half())
@@ -922,10 +954,13 @@ def _spmm_close(b, x, y, ref):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("k", [1, 4, 128])
+@pytest.mark.parametrize("k", [1, 4, 32, 100, 128, 256])
 @pytest.mark.parametrize("block_shape", [(8, 8), (4, 8), (8, 16), (3, 12)],
                          ids=lambda b: f"{b[0]}x{b[1]}")
 def test_bsr_spmm_matches_plain(cuda, block_shape, k, dtype):
+    """Every route: vec and warp below k = 32, tiles from k = 32 (one
+    chunk of 32, 100 and 128 columns; two at 256); each repeats bit for
+    bit."""
     torch.backends.cuda.matmul.allow_tf32 = False
     b = _rand_bsr(block_shape, dtype, cuda)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
@@ -940,8 +975,90 @@ def test_bsr_spmm_matches_plain(cuda, block_shape, k, dtype):
     pow2 = C & (C - 1) == 0
     vec = k == 1 and block_shape != (3, 12) and not (
         dtype == torch.float64 and block_shape == (8, 16))
-    assert bsr_spmm.route(block_shape, k, dtype) == (
-        "vec" if vec else "warp" if k < 32 and pow2 else "lanes")
+    assert bsr_spmm.route(block_shape, k, dtype,
+                          width=b.blocks.shape[1]) == (
+        "vec" if vec else "warp" if k < 32 and pow2
+        else "tiles" if k >= 32 else "lanes")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_bsr_tiles_info_fits_the_sm(cuda, dtype):
+    """The tiles kernel at team7's shape (width 17, (8, 8) blocks, k =
+    128) is resident at least once an SM, within its shared memory, with
+    a window of one x block at least; a shape the route does not take is
+    refused."""
+    from eddy_currents_3d_tpu_torch.ops import bsr_cuda
+    info = bsr_spmm.tiles_info(17, (8, 8), 128, dtype, cuda)
+    assert info["ctas_per_sm"] >= 1 and info["window_blocks"] >= 1
+    assert info["registers"] > 0
+    assert info["threads"] == 32 * bsr_cuda.TILE_ROWS
+    assert info["smem_bytes"] <= bsr_cuda.SMEM_MAX
+    with pytest.raises(RuntimeError, match="bsr_tiles_info"):
+        bsr_spmm.tiles_info(17, (8, 8), 33, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_bsr_spmm_unaligned_x_takes_lanes(cuda, dtype):
+    """k = 128: an x 4 or 8 bytes off 16 takes the lanes route and gives
+    the plain version's result; the aligned x the tiles route."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = _rand_bsr((8, 8), dtype, cuda, seed=5)
+    m, k = b.shape[1], 128
+    vals = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (m, k))).to(cuda, dtype)
+    buf = torch.zeros(m * k + 1, dtype=dtype, device=cuda)
+    shifted = buf[1:].view(m, k)
+    shifted.copy_(vals)
+    assert shifted.data_ptr() % 16 != 0 and vals.data_ptr() % 16 == 0
+    width = b.blocks.shape[1]
+    ref = bsr_spmm_reference(b, vals)
+    for x, route in ((vals, "tiles"), (shifted, "lanes")):
+        assert bsr_spmm.route((8, 8), k, dtype, x.data_ptr() % 16 == 0,
+                              width) == route
+        n0 = bsr_spmm.launches
+        y = bsr_spmm(b, x)
+        torch.cuda.synchronize()
+        assert bsr_spmm.launches == n0 + 1
+        _spmm_close(b, vals, y, ref)
+        assert torch.equal(bsr_spmm(b, x), y)
+
+
+def _banded_bsr(nbr, width, block_shape, dtype, dev, seed=0):
+    """nbr block rows, each naming ``width`` distinct block columns in
+    ascending order from a band of 4 x width about its own, with random
+    blocks: rows wider than a stencil's."""
+    rng = np.random.default_rng(seed)
+    R, C = block_shape
+    lo = np.clip(np.arange(nbr) - 2 * width, 0, nbr - 4 * width)
+    cols = np.sort(np.stack([rng.choice(4 * width, width, replace=False)
+                             for _ in range(nbr)]), axis=1) + lo[:, None]
+    blocks = rng.standard_normal((nbr, width, R, C))
+    return BSRMatrix(
+        block_cols=torch.from_numpy(cols.astype(np.int32)).to(dev),
+        blocks=torch.from_numpy(blocks).to(dev, dtype),
+        shape=(nbr * R, nbr * C))
+
+
+@pytest.mark.parametrize("width, k, route", [
+    (60, 32, "lanes"), (60, 128, "tiles"), (100, 256, "tiles"),
+    (120, 128, "lanes")])
+def test_bsr_spmm_wide_rows_route_by_width(cuda, width, k, route):
+    """Block rows past TILES_WIDTH slots take lanes below a full chunk of
+    columns, and past TILES_WIDTH_FULL at any k; each route matches the
+    plain version and repeats bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = _banded_bsr(4 * width + 8, width, (8, 8), torch.float32, cuda)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (b.shape[1], k))).to(cuda, torch.float32)
+    assert bsr_spmm.route((8, 8), k, torch.float32, True, width) == route
+    n0 = bsr_spmm.launches
+    y = bsr_spmm(b, x)
+    torch.cuda.synchronize()
+    assert bsr_spmm.launches == n0 + 1
+    _spmm_close(b, x, y, bsr_spmm_reference(b, x))
+    assert torch.equal(bsr_spmm(b, x), y)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],

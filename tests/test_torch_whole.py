@@ -10,12 +10,18 @@ CPU, and the whole-plane apply_dots against the JAX package's.
   grids; the conducting runs come first and cover the conductor's planes,
   and no run marked not conducting holds a cell whose code is not 0.
 * ``spmm_route`` takes the vec route only at k = 1 with 16-byte aligned
-  operands and C a multiple of the 16-byte vector.
+  operands and C a multiple of the 16-byte vector, and the tiles route at
+  k >= 32 only with 16-byte rows of x and of a block, R <= 8, R*C <= 256,
+  aligned operands and a CTA's shared memory within the SM's (its
+  constants read from csrc/bsr_spmm.cu).
 * The whole-plane ``apply_dots`` through the wrapper on CPU tensors (its
   plain version) matches JAX's coded operator in Pallas interpret mode on
   grids with odd nx and ny, within 3e-6·scale, and its dots the float64
   sums within 2e-5 relative (tests/test_torch_coded.py).
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,7 +39,9 @@ from eddy_currents_3d_tpu_torch.assembly.assemble import assemble_operator as t_
 from eddy_currents_3d_tpu_torch.assembly.stencil import State as TState
 from eddy_currents_3d_tpu_torch.ops import coded as tc
 from eddy_currents_3d_tpu_torch.ops import coded_cuda
-from eddy_currents_3d_tpu_torch.ops.bsr_cuda import bsr_spmm, spmm_route
+from eddy_currents_3d_tpu_torch.ops import bsr_cuda
+from eddy_currents_3d_tpu_torch.ops.bsr_cuda import (bsr_spmm, spmm_route,
+                                                     tiles_smem)
 from eddy_currents_3d_tpu_torch.ops.coded_cuda import (AIR_CHUNK, COND_CHUNK,
                                                        WHOLE_CTAS_PER_SM,
                                                        WHOLE_TY, whole_plan)
@@ -147,14 +155,79 @@ def test_runs_off_the_conductor_hold_no_code(name):
     ((3, 12), 1, 4, True, "lanes"),   # C % 4 == 0 but 9 vectors a block
     ((8, 6), 1, 4, True, "lanes"),    # C not a multiple of 4
     ((8, 8), 4, 4, True, "warp"),
-    ((8, 8), 128, 4, True, "lanes"),
-    ((4, 8), 128, 8, True, "lanes"),
+    ((8, 8), 128, 4, True, "tiles"),  # team7 at k = 128, f32
+    ((8, 8), 128, 8, True, "tiles"),  # and f64
+    ((4, 8), 128, 8, True, "tiles"),
+    ((8, 8), 32, 4, True, "tiles"),   # the narrowest k it takes
+    ((3, 12), 100, 4, True, "tiles"),  # 400-byte rows of x
+    ((8, 8), 34, 8, True, "tiles"),   # f64: 272-byte rows
+    ((8, 8), 33, 4, True, "lanes"),   # ragged rows of x
+    ((8, 8), 31, 4, True, "warp"),
+    ((8, 8), 128, 4, False, "lanes"),  # an x view off 16 bytes
+    ((8, 6), 128, 4, True, "lanes"),  # 24-byte rows of a block
+    ((16, 16), 128, 4, True, "lanes"),  # R > 8 rows a lane holds
+    ((16, 32), 128, 4, True, "lanes"),  # R*C > 256
     ((16, 32), 1, 4, True, "lanes"),  # 128 vectors a block, R*C > 256
 ])
 def test_spmm_route_choice(block_shape, k, itemsize, aligned, route):
     assert spmm_route(block_shape, k, itemsize, aligned) == route
     dtype = {4: torch.float32, 8: torch.float64}[itemsize]
     assert bsr_spmm.route(block_shape, k, dtype, aligned) == route
+
+
+@pytest.mark.parametrize("block_shape, itemsize, width, route", [
+    ((8, 8), 4, 17, "tiles"),         # team7's exported operator
+    ((8, 8), 8, 17, "tiles"),
+    ((8, 32), 4, 47, "tiles"),        # 188 KB of blocks, two 16 KB x blocks
+    ((8, 32), 4, 48, "lanes"),        # past the SM's shared memory
+    ((8, 32), 8, 20, "tiles"),        # 160 KB of blocks, two 32 KB x blocks
+    ((8, 32), 8, 21, "lanes"),
+])
+def test_spmm_tiles_needs_a_ctas_shared_memory(block_shape, itemsize, width,
+                                               route):
+    """The tiles route stages a CTA's blocks and two x blocks at least:
+    where that passes the SM's 227 KB the lanes route serves the shape."""
+    assert spmm_route(block_shape, 128, itemsize, True, width) == route
+    fits = tiles_smem(width, block_shape, 128, itemsize) <= bsr_cuda.SMEM_MAX
+    assert fits == (route == "tiles")
+
+
+@pytest.mark.parametrize("block_shape, k, itemsize, width, route", [
+    ((8, 8), 32, 4, 50, "tiles"),     # measured level with lanes at k = 32
+    ((8, 8), 32, 4, 51, "lanes"),
+    ((4, 8), 64, 4, 51, "lanes"),     # a chunk of 128 columns not full
+    ((8, 8), 128, 4, 100, "tiles"),   # measured 1.5x faster than lanes
+    ((8, 8), 128, 4, 101, "lanes"),
+    ((4, 8), 256, 4, 100, "tiles"),   # two full chunks
+    ((8, 8), 128, 8, 100, "tiles"),   # f64: 200 KB of blocks still fit
+    ((8, 8), 128, 4, 200, "lanes"),   # measured slower than lanes
+])
+def test_spmm_tiles_width_limit(block_shape, k, itemsize, width, route):
+    """The tiles route takes block rows up to TILES_WIDTH slots, and up to
+    TILES_WIDTH_FULL where a CTA's chunk of columns is full: past them
+    lanes measured faster."""
+    assert spmm_route(block_shape, k, itemsize, True, width) == route
+    dtype = {4: torch.float32, 8: torch.float64}[itemsize]
+    assert bsr_spmm.route(block_shape, k, dtype, True, width) == route
+
+
+def test_spmm_tiles_constants_are_the_sources():
+    """The tiles route's shape rule in ops/bsr_cuda.py reads the CTA of
+    csrc/bsr_spmm.cu: rows a CTA, columns, rows a lane and shared memory."""
+    src = (Path(bsr_cuda.__file__).parents[1] / "csrc" / "bsr_spmm.cu"
+           ).read_text()
+    got = {name: int(eval(re.search(pattern, src).group(1)))
+           for name, pattern in (
+               ("rows", r"constexpr int kTileRows = (\d+);"),
+               ("stages", r"constexpr int kStages = (\d+);"),
+               ("chunk", r"constexpr int kChunk = (\d+);"),
+               ("tr", r"constexpr int kTR = (\d+);"),
+               ("smem", r"constexpr int kSmemMax = ([\d *]+);"),
+               ("static", r"constexpr int kStaticSmem = (\d+);"))}
+    assert (got["rows"], got["chunk"], got["tr"], got["stages"]) == (
+        bsr_cuda.TILE_ROWS, bsr_cuda.TILE_CHUNK, bsr_cuda.TILE_ROWS_MAX,
+        bsr_cuda.TILE_STAGES)
+    assert got["smem"] - got["static"] == bsr_cuda.SMEM_MAX
 
 
 WHOLE_CASES = {
