@@ -206,11 +206,19 @@ Phases, each printed before the last line:
    field_u's all scalar), within BF16_GAP of the float64 CPU run after
    step 1; the per-shard field kernels with their
    ghost-plane corrections in one process (team7 and 256x256x64 cut into
-   2 and 4 z slabs, the ghosts handed over locally) against the global
-   kernels within SLAB_TOL of scale; and Simulation(mesh=make_mesh(1))
+   2 and 4 z slabs and 2x2 (z, y) blocks, the ghosts handed over locally)
+   against the global kernels within SLAB_TOL of scale; the per-slab
+   coded_matvec with its corrections likewise (team7 in 2, 4 and 5 slabs,
+   256x256x64 in 2 and 4, one launch a slab), with the per-slab route
+   timed at 256x256x64 (the slab's conductor planes, every plane, the
+   split pair's slab kernel on every plane); Simulation(mesh=make_mesh(1))
    over NCCL at team7, float32, graphed, under set_sync_debug_mode
-   ("error"), equal bit for bit to the unsharded use_coded=False run, its
-   dots' all-reduce called during the capture and never after.
+   ("error"), its dots' all-reduce called during the capture and never
+   after: the coded tier (the default) within 4 tol scale of the float64
+   run after step 1, its iterations beside the unsharded coded run's, and
+   use_coded=False equal bit for bit to the unsharded use_coded=False run;
+   and the CLI with --mesh 1 over NCCL as a subprocess, its files within
+   4 tol scale of the one-device CLI's.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is the card's name and power limit; the one before it the kernels' JSON
@@ -223,8 +231,9 @@ product's numbers under "f64"), phase 15b's 20-step dot_dtype=float32
 run for the bfloat16-state field_a_bf16 and field_u_bf16, phase 19's
 5-step run for field_a_f32coef and field_u_f32coef, bfloat16 state with
 float32 coefficients; the field records also carry the route the run
-took, "kernel_route", and the bfloat16-state ones their launches on each
-route, "launches_by_route"), with its bound (bytes over 3.35 TB/s or
+took, "kernel_route", the bfloat16-state ones their launches on each
+route, "launches_by_route", and coded_matvec's record its launches on
+phase 19's coded mesh of one rank, "mesh"), with its bound (bytes over 3.35 TB/s or
 operations over 67 TFLOP/s FP32, the larger) and the library call's time
 where one PyTorch call computes the same function; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
@@ -1934,104 +1943,204 @@ def phase_f32coef_team7(model, dev, ref):
     return counts
 
 
-def _slabs(system, n, dev):
-    """The per-slab operators of ``system`` cut into ``n`` z slabs, in one
-    process: each slab's :class:`Mesh` names its neighbours by slab index
-    and no process group exists (the ghosts are handed over locally)."""
-    from eddy_currents_3d_tpu_torch.parallel.mesh import Mesh
+def _blocks(system, n_z, n_y, dev, **kw):
+    """The float32 sharded operators of every (z, y) block of ``system``
+    on ``dev``, in one process (the ghosts handed over locally)."""
     from eddy_currents_3d_tpu_torch.parallel.shard_op import (
-        ShardedStencilOperator)
+        in_process_blocks)
 
-    return [ShardedStencilOperator(system, Mesh(
-        n_z=n, index=i, device=dev, lo=i - 1 if i > 0 else None,
-        hi=i + 1 if i + 1 < n else None), torch.float32) for i in range(n)]
+    return in_process_blocks(system, n_z, n_y, torch.float32, dev, **kw)
 
 
-def _slab_apply(sops, x):
-    """The sharded apply of ``x`` (global) over ``sops``, each slab's
-    ghosts taken straight from its neighbours' messages; the global (yA,
-    yU)."""
-    xs = [s.pad_state(x) for s in sops]
-    ys = [s.local_apply(xi) for s, xi in zip(sops, xs)]
-    for i, (s, (yA, yU)) in enumerate(zip(sops, ys)):
-        ghosts = {}
-        if i > 0:
-            ghosts["lo"] = sops[i - 1].message(xs[i - 1], "hi")
-        if i + 1 < len(sops):
-            ghosts["hi"] = sops[i + 1].message(xs[i + 1], "lo")
-        s.fold(yA, yU, ghosts)
-    nz = sops[0].shape_zyx[0]
-    return (torch.cat([y[0] for y in ys], dim=1)[:, :nz],
-            torch.cat([y[1] for y in ys], dim=0)[:nz])
+def _sharded_check(label, sops, x, ref, launches, global_ms):
+    """Hold the sharded apply of ``x`` over ``sops`` to ``ref`` (the global
+    kernels' (yA, yU)) within SLAB_TOL of the output scale, its launches
+    ({wrapper: expected launches of one apply}) to the wrappers' counts, and
+    print its time in one process against ``global_ms``."""
+    from eddy_currents_3d_tpu_torch.parallel.shard_op import handover_apply
+
+    ws = wrappers()
+    before = {k: ws[k].launches for k in launches}
+    yA, yU = handover_apply(sops, x)
+    torch.cuda.synchronize()
+    got = {k: ws[k].launches - before[k] for k in launches}
+    if got != launches:
+        raise AssertionError(f"{label}: launches {got}, expected {launches}")
+    scale = ref[0].abs().max().item()
+    uscale = max(ref[1].abs().max().item(), scale)
+    err = max((yA - ref[0]).abs().max().item() / scale,
+              (yU - ref[1]).abs().max().item() / uscale)
+    ms = cuda_ms(lambda: handover_apply(sops, x), 10)
+    say(f"[19] {label}: against the global kernels err {err:.2e} of scale "
+        f"(limit {SLAB_TOL:g}); launches {got}; {ms * 1e3:.1f} us per "
+        f"sharded apply in one process (block copies and messages "
+        f"included), global apply {global_ms * 1e3:.1f} us")
+    if not err <= SLAB_TOL:
+        raise AssertionError(f"{label}: {err:.3e}")
+    return err
 
 
 def phase_slab_kernels(recs, dev):
     """[19] the per-shard field kernels with their ghost corrections, in
-    one process: team7 and 256x256x64 cut into 2 and 4 z slabs, each
-    slab's field_a and field_u launched on its own slab and its neighbours'
-    ghost planes folded in (the exchange swapped for a local hand-over),
-    against the global field kernels on the same input: within SLAB_TOL of
-    the output scale (the same float32 products, summed in another order
-    at the slab faces)."""
-    from eddy_currents_3d_tpu_torch.ops.field_cuda import field_a, field_u
-
+    one process: team7 and 256x256x64 cut into 2 and 4 z slabs and into
+    2x2 (z, y) blocks, each block's field_a and field_u launched on its own
+    block and its neighbours' ghost planes and rows folded in (the exchange
+    swapped for a local hand-over), against the global field kernels on
+    the same input: within SLAB_TOL of the output scale (the same float32
+    products, summed in another order at the block faces)."""
     for name in ("team7", "scale256"):
         model, system = recs[name]["model"], recs[name]["system"]
         x, _ = _inputs(model, dev, 6)
         op = _field_op(system, torch.float32)
         ref = op.apply(x)
-        scale = ref.A.abs().max().item()
-        uscale = max(ref.U.abs().max().item(), scale)
-        for n in (2, 4):
-            sops = _slabs(system, n, dev)
-            na, nu = field_a.launches, field_u.launches
-            yA, yU = _slab_apply(sops, x)
-            torch.cuda.synchronize()
-            if (field_a.launches - na, field_u.launches - nu) != (n, n):
-                raise AssertionError(f"{name} / {n}: field launches "
-                                     f"{field_a.launches - na}, "
-                                     f"{field_u.launches - nu}")
-            err = max((yA - ref.A).abs().max().item() / scale,
-                      (yU - ref.U).abs().max().item() / uscale)
-            ms = cuda_ms(lambda: _slab_apply(sops, x), 10)
-            say(f"[19] {name} in {n} z slabs of {sops[0].NZl} planes "
-                f"(padded {sops[0].padded_zyx}): per-slab field_a + field_u "
-                f"with ghost corrections against the global kernels: err "
-                f"{err:.2e} of scale (limit {SLAB_TOL:g}); {ms * 1e3:.1f} "
-                f"us per sharded apply in one process (slab copies and "
-                f"messages included), global apply "
-                f"{cuda_ms(lambda: op.apply(x), 10) * 1e3:.1f} us")
-            if not err <= SLAB_TOL:
-                raise AssertionError(f"{name} in {n} slabs: {err:.3e}")
+        g_ms = cuda_ms(lambda: op.apply(x), 10)
+        for dims in ((2, 1), (4, 1), (2, 2)):
+            sops = _blocks(system, *dims, dev)
+            boxes = sum(s.box is not None for s in sops)
+            _sharded_check(
+                f"{name} in {dims[0]}x{dims[1]} (z, y) blocks of "
+                f"{sops[0].block_zyx} (padded {sops[0].padded_zyx}), "
+                f"{boxes} holding box rows: per-block field_a + field_u with "
+                f"ghost corrections", sops, x, (ref.A, ref.U),
+                {"field_a": len(sops), "field_u": boxes}, g_ms)
 
 
-def phase_mesh_nccl(model, dev):
-    """[19] a mesh of one rank over NCCL: Simulation(mesh=make_mesh(1)) at
-    team7, float32, graphed, 5 steps under set_sync_debug_mode("error"),
-    against the unsharded use_coded=False run: bit for bit (the slab is the
-    whole grid); the all-reduce of the dots is called while the solve is
-    captured and never again (its Python calls stop), and the iterations
-    are F32_FIELD_ITERS' first 5.  ms/iteration of each, at world size 1."""
+def phase_slab_coded(recs, dev):
+    """[19] the per-slab coded kernel with its corrections, in one process:
+    team7 and 256x256x64 cut into 2 and 4 z slabs, and team7 into 5 (slabs
+    of 5 planes over 24: the grid's +z face mid-slab, a padding plane), each
+    slab's coded_matvec launched on its own slab and the neighbours' ghosts
+    folded in, against the global coded_matvec on the same input within
+    SLAB_TOL of the output scale, one launch a slab.  At 256x256x64 also
+    the per-slab route: each slab's coded_matvec with its conducting run
+    over its own conductor planes (the route taken), over every plane of
+    the slab (JAX's cond_z = (0, NZl)), and the split pair's slab kernel
+    over the whole slab (the split pair with a full-slab cond_z, whose
+    stencil kernel has no plane), each timed and held to the first."""
+    import dataclasses
+
+    from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
+    from eddy_currents_3d_tpu_torch.ops.coded_split_cuda import coded_slab
+
+    errs = []
+    for name, counts in (("team7", (2, 4, 5)), ("scale256", (2, 4))):
+        rec = recs[name]
+        model, system, op = rec["model"], rec["system"], rec["op"]
+        x, _ = _inputs(model, dev, 7)
+        ref = coded_matvec(op, x.A, x.U)
+        g_ms = cuda_ms(lambda: coded_matvec(op, x.A, x.U), 10)
+        for n in counts:
+            sops = _blocks(system, n, 1, dev, model=model, use_coded=True)
+            errs.append(_sharded_check(
+                f"{name} in {n} z slabs of {sops[0].NZl} planes (padded "
+                f"{sops[0].padded_zyx}, conductor planes "
+                f"{[s.local.cond_z for s in sops]}, per-plane fixes on "
+                f"{[len(s._zfix) for s in sops]} planes): per-slab "
+                f"coded_matvec with its corrections", sops, x, ref,
+                {"coded_matvec": n}, g_ms))
+            if name != "scale256":
+                continue
+            rows = []
+            for s in sops:
+                xs = s.pad_state(x)
+                full = dataclasses.replace(s.local, cond_z=(0, s.NZl))
+                split = dataclasses.replace(full, compact_u=True)
+                yA0, yU0 = coded_matvec(s.local, xs.A, xs.U)
+                yA1, yU1 = coded_matvec(full, xs.A, xs.U)
+                yA2 = torch.empty_like(xs.A)
+                yU2 = coded_slab(split, xs.A, xs.U, yA2)
+                torch.cuda.synchronize()
+                same = (torch.equal(yA0, yA1) and torch.equal(yU0, yU1),
+                        (yA2 - yA0).abs().max().item()
+                        / max(yA0.abs().max().item(), 1e-30))
+                fns = ((lambda: coded_matvec(s.local, xs.A, xs.U),
+                        "whole_march"),
+                       (lambda: coded_matvec(full, xs.A, xs.U),
+                        "whole_march"),
+                       (lambda: coded_slab(split, xs.A, xs.U, yA2),
+                        "slab_march"))
+                t = [cuda_ms(fn, 20) for fn, _ in fns]
+                dt = [device_ms(fn, k) for fn, k in fns]
+                rows.append((s.local.cond_z, t, same, dt))
+                if not (same[0] and same[1] <= SLAB_TOL
+                        and torch.allclose(yU2, yU0, rtol=0, atol=SLAB_TOL
+                                           * max(yU0.abs().max().item(),
+                                                 1e-30))):
+                    raise AssertionError(f"scale256 / {n}: the per-slab "
+                                         f"routes differ: {same}")
+            us = lambda v: "not measured" if v is None else f"{v * 1e3:.2f}"
+            say(f"[19] scale256 in {n} slabs, per-slab route, us per call, "
+                f"events (host included) / device (conductor planes: "
+                f"whole_march on them, whole_march on every plane, "
+                f"coded_slab on every plane): "
+                + "; ".join(f"{cz} " + ", ".join(
+                    f"{t[k] * 1e3:.1f} / {us(d[k])}" for k in range(3))
+                    for cz, t, _, d in rows)
+                + "; device sums " + ", ".join(
+                    "not measured" if any(r[3][k] is None for r in rows)
+                    else f"{sum(r[3][k] for r in rows) * 1e3:.2f}"
+                    for k in range(3))
+                + f"; the slab kernel against whole_march at most "
+                f"{max(r[2][1] for r in rows):.2e} of scale")
+    return max(errs)
+
+
+def _mesh_of_one(backend="nccl"):
+    """A one-rank process group on a file store in a temporary directory,
+    as a context: yields the directory."""
     import torch.distributed as dist
 
+    @contextlib.contextmanager
+    def group():
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                                    rank=0, world_size=1)
+            try:
+                yield tmp
+            finally:
+                dist.destroy_process_group()
+    return group()
+
+
+def phase_mesh_nccl(model, dev, ref64):
+    """[19] a mesh of one rank over NCCL, team7, float32, graphed, 5 steps
+    each under set_sync_debug_mode("error"), the dots' all-reduce called
+    while the solve is captured and never after (its Python calls stop):
+
+    * Simulation(mesh=make_mesh(1)), the coded tier (the default on a
+      z-only mesh), against phase 6's float64 CPU run (``ref64``) within
+      4 tol scale after step 1, its iterations beside the unsharded coded
+      run's, coded_matvec launched on every apply (its launches per
+      iteration, which this returns with its counts);
+    * use_coded=False on the mesh, the field tier, bit for bit with the
+      unsharded use_coded=False run, the iterations F32_FIELD_ITERS' first
+      5.
+
+    ms/iteration of each, at world size 1."""
     from eddy_currents_3d_tpu_torch import Simulation
     from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
 
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
-                                rank=0, world_size=1)
-        try:
-            mesh = make_mesh(1)
-            calls = []
-            real = mesh.all_reduce
-            object.__setattr__(mesh, "all_reduce",
-                               lambda t: calls.append(1) or real(t))
-            sim = Simulation(model, torch.float32, mesh=mesh)
-            ref = Simulation(model, torch.float32, device=dev,
-                             use_coded=False)
-            sim.run(num_steps=1)
+    a64 = ref64[0][0]
+    tol = model.solver.tolerance
+    out = {}
+    with _mesh_of_one():
+        mesh = make_mesh(1)
+        calls = []
+        real = mesh.all_reduce
+        object.__setattr__(mesh, "all_reduce",
+                           lambda t: calls.append(1) or real(t))
+        for label, kw in (("coded", {}), ("field", {"use_coded": False})):
+            sim = Simulation(model, torch.float32, mesh=mesh, **kw)
+            ref = Simulation(model, torch.float32, device=dev, **kw)
+            if sim.shard_op.use_coded != (label == "coded") or (
+                    label == "coded" and ref.coded_op is None):
+                raise AssertionError(f"{label}: the mesh took another tier")
+            n0 = len(calls)
+            s1, _ = sim.run(num_steps=1)
             ref.run(num_steps=1)
-            n_cap = len(calls)
+            n_cap = len(calls) - n0
+            gap1 = ((s1.A.cpu().double() - a64).abs().max().item()
+                    / (tol * a64.abs().max().item()))
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -2040,24 +2149,77 @@ def phase_mesh_nccl(model, dev):
                 torch.cuda.set_sync_debug_mode(0)
             sr, dr = ref.run(num_steps=5)
             st2, d2 = sim.run(num_steps=5)
-        finally:
-            dist.destroy_process_group()
-    ms = [x["wall_s"] / x["total_iterations"] * 1e3 for x in (d, dr, d2)]
-    say(f"[19] mesh of 1 rank over NCCL, team7 f32 x 5 steps: iterations "
-        f"{d['iterations']} (unsharded {dr['iterations']}), A and carry "
-        f"equal bit for bit: {torch.equal(st.A, sr.A)}, "
-        f"{torch.equal(st.carry, sr.carry)}; captures {sim.captures}; "
-        f"all-reduce calls {n_cap} by the first step's capture, "
-        f"{len(calls) - n_cap} after; no sync flagged; ms/iteration at "
-        f"world size 1: mesh {ms[0]:.3f}, {ms[2]:.3f}, unsharded "
-        f"{ms[1]:.3f}; launches {counts}")
-    if not (torch.equal(st.A, sr.A) and torch.equal(st.carry, sr.carry)
-            and d["iterations"] == dr["iterations"]
-            == F32_FIELD_ITERS[:5] and sim.captures == 1
-            and n_cap > 0 and len(calls) == n_cap
-            and counts["field_a"] >= 2 * d["total_iterations"]):
-        raise AssertionError("the mesh of one rank differs from the "
-                             "unsharded field run")
+            ms = [x["wall_s"] / x["total_iterations"] * 1e3
+                  for x in (d, dr, d2)]
+            equal = (torch.equal(st.A, sr.A)
+                     and torch.equal(st.carry, sr.carry))
+            per_it = counts["coded_matvec"] / d["total_iterations"]
+            say(f"[19] mesh of 1 rank over NCCL, team7 f32 x 5 steps, "
+                f"{label} tier: iterations {d['iterations']} (unsharded "
+                f"{dr['iterations']}, equal: "
+                f"{d['iterations'] == dr['iterations']}), A and carry equal "
+                f"to the unsharded run's bit for bit: {equal}; step 1 "
+                f"{gap1:.3f} tol scale from the f64 CPU run (limit 4); "
+                f"captures {sim.captures}; all-reduce calls {n_cap} by the "
+                f"first step's capture, {len(calls) - n0 - n_cap} after; no "
+                f"sync flagged; ms/iteration at world size 1: mesh "
+                f"{ms[0]:.3f}, {ms[2]:.3f}, unsharded {ms[1]:.3f}; launches "
+                f"{counts} ({per_it:.2f} coded_matvec a solver iteration)")
+            ok = (sim.captures == 1 and n_cap > 0
+                  and len(calls) == n0 + n_cap and gap1 <= 4.0
+                  and not d["unconverged_steps"])
+            if label == "field":
+                ok = ok and (equal and d["iterations"] == dr["iterations"]
+                             == F32_FIELD_ITERS[:5]
+                             and counts["field_a"] >= 2 * d["total_iterations"]
+                             and counts["coded_matvec"] == 0)
+            else:
+                ok = ok and (counts["coded_matvec"] >= 2 * d["total_iterations"]
+                             and counts["field_a"] == 0)
+                out = {"launches": counts["coded_matvec"],
+                       "per_iteration": per_it, "ms_per_iteration": ms[0],
+                       "iterations": d["iterations"]}
+            if not ok:
+                raise AssertionError(f"the {label} mesh of one rank failed "
+                                     "its checks")
+    return out
+
+
+def phase_cli_mesh(dev):
+    """[19] the CLI on a mesh of one rank over NCCL, as a subprocess:
+    python -m eddy_currents_3d_tpu_torch in.vxc --mesh 1 (team7, 3 steps,
+    an output every step) starts its own one-rank group on the card; it
+    exits 0, names world size 1 and the coded tier on its backend line, and
+    writes the one-device CLI's files, the fields within 4 tol of scale."""
+    from eddy_currents_3d_tpu_torch.io.vtk import read_vtk_vectors
+    from eddy_currents_3d_tpu_torch.testing.cases import case_static
+
+    text = case_static(shape_xyz=(102, 102, 24), steps=3, jump=0.001)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "in.vxc"), "w") as f:
+            f.write(text)
+        one = _cli(["in.vxc", "-o", "one"], tmp)
+        mesh = _cli(["in.vxc", "-o", "mesh", "--mesh", "1"], tmp)
+        line = _cli_line(mesh, "backend")
+        names = sorted(os.listdir(os.path.join(tmp, "one")))
+        if ("x1," not in line or "coded per block of 1x1" not in line
+                or sorted(os.listdir(os.path.join(tmp, "mesh"))) != names
+                or not names):
+            raise AssertionError(f"CLI --mesh 1: {line}, files {names}")
+        gap = 0.0
+        for n in names:
+            if not n.startswith("field_"):
+                continue
+            a = read_vtk_vectors(os.path.join(tmp, "one", n))["Field_A"]
+            b = read_vtk_vectors(os.path.join(tmp, "mesh", n))["Field_A"]
+            gap = max(gap, np.abs(a - b).max() / (5e-3 * np.abs(a).max()))
+    total = [ln for ln in mesh.splitlines() if "iterations total" in ln]
+    say(f"[19] CLI --mesh 1 over NCCL: {line}; {_cli_line(mesh, 'Tcalc')}; "
+        f"{total}; {len(names)} files as the one-device CLI's, Field_A within "
+        f"{gap:.3f} tol scale of them (limit 4); one device: "
+        f"{_cli_line(one, 'backend')}")
+    if not gap <= 4.0:
+        raise AssertionError(f"CLI --mesh 1: {gap} tol scale")
 
 
 def phase_device_times(recs, dev):
@@ -2696,7 +2858,9 @@ def main() -> int:
     phase_flat_f32(model, dev)
     f32c_counts = phase_f32coef_team7(model, dev, f64_ref)
     phase_slab_kernels(recs, dev)
-    phase_mesh_nccl(model, dev)
+    slab_err = phase_slab_coded(recs, dev)
+    mesh_rec = phase_mesh_nccl(model, dev, f64_ref)
+    phase_cli_mesh(dev)
 
     # bytes each function must move (inputs read once, outputs written
     # once) and its FP32 operations, at the shapes of its record
@@ -2745,8 +2909,15 @@ def main() -> int:
     # the coded and field operators' library call is their exported CSR
     # @ x (csr_library_ms): for the split pair and the field pair, it
     # computes what the pair computes together, and stands in both records
+    # coded_matvec on the coded mesh of one rank (phase 19): its launches
+    # over the 5-step run and a solver iteration, and the per-slab check's
+    # largest error
     kernels = [record("coded_matvec", matvec_launches, recs["team7"],
-                      "apply_dots", library_ms=bsr_recs["csr_ms"])]
+                      "apply_dots", library_ms=bsr_recs["csr_ms"],
+                      mesh={"launches": mesh_rec["launches"],
+                            "per_iteration": mesh_rec["per_iteration"],
+                            "ms_per_iteration": mesh_rec["ms_per_iteration"],
+                            "per_slab_max_err": slab_err})]
     for name in ("coded_stencil", "coded_slab"):
         rec = dict(split_recs["scale256"][name])
         rec["max_abs_err"] = max(r[name]["max_abs_err"]

@@ -11,14 +11,26 @@ progress ticker, and the final ``Tcalc`` wall-time print — plus dtype,
 preconditioning and checkpoint/resume behind flags.  It runs on the CUDA
 card unless ``--device`` names another device (``--device cpu``), at
 every ``--dtype`` (float64 on the flat-roll operator) and
-``--coeff-dtype``.  The multi-device tier's ``--mesh`` is not ported to the
-CLI yet and is refused with exit code 2 (``Simulation(mesh=...)`` runs it
-from Python).
+``--coeff-dtype``.
+
+``--mesh Z[,Y]`` runs the multi-device tier (``parallel/shard_op.py``) on
+``Z x Y`` (z, y) blocks, one process a block, under torchrun::
+
+    torchrun --nproc-per-node 4 -m eddy_currents_3d_tpu_torch in.vxc --mesh 2,2
+
+Each rank joins the process group that torchrun's environment describes:
+NCCL on the card of its local rank, gloo with ``--device cpu``.  A run of
+``--mesh 1`` outside torchrun starts a group of one rank itself.  The first
+rank prints the lines and writes the VTK files and checkpoints (the global
+fields, gathered to it); the backend line names the world size.  A world
+size other than ``Z * Y`` exits with code 2 on every rank before any rank
+joins a group.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -67,7 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "Jacobi, Chebyshev-on-Jacobi-scaled, geometric "
                    "multigrid V-cycle, or ILU(0)")
     p.add_argument("--mesh", default=None, metavar="Z[,Y]",
-                   help="the multi-device tier: not ported yet (exits 2)")
+                   help="shard over Z x Y (z, y) blocks, one process a "
+                   "block: run under torchrun --nproc-per-node Z*Y (a mesh "
+                   "of 1 runs without it)")
     p.add_argument("--warm-start", default="extrapolate",
                    choices=["extrapolate", "previous"],
                    help="per-step solver warm start: linear extrapolation "
@@ -95,6 +109,11 @@ def _error(msg: str) -> int:
 
 def _route(sim) -> str:
     """The operator route the solve runs on."""
+    sop = sim.shard_op
+    if sop is not None:
+        tier = ("coded" if sop.use_coded
+                else "field tier" if sop.use_pallas else "field plain")
+        return f"{tier} per block of {sop.n_z}x{sop.n_y}"
     if sim.coded_op is not None:
         return "coded split" if sim.coded_op.split else "coded whole-plane"
     if sim.field_op is not None:
@@ -115,23 +134,79 @@ def main(argv=None) -> int:
         return _error("--checkpoint-dir without --checkpoint-every writes no "
                       "checkpoints; pass --checkpoint-every N (or --resume "
                       "to continue from an existing run)")
+    dims = None
     if args.mesh:
-        return _error("--mesh: the multi-device tier is not ported to "
-                      "eddy_currents_3d_tpu_torch yet (ROADMAP.md); run on "
-                      "one device, or use python -m eddy_currents_3d_tpu")
+        try:
+            dims = [int(v) for v in args.mesh.split(",")]
+        except ValueError:
+            dims = []
+        if not 1 <= len(dims) <= 2 or min(dims) < 1:
+            return _error(f"--mesh {args.mesh!r}: give Z or Z,Y, positive "
+                          "integers")
+        if len(dims) == 1:
+            dims.append(1)
+        # checked on every rank before any joins a group, so that no rank
+        # waits for one that has left
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if world != dims[0] * dims[1]:
+            return _error(f"--mesh {args.mesh} takes {dims[0] * dims[1]} "
+                          f"ranks, one a block, but the world size is "
+                          f"{world}: run it under torchrun --nproc-per-node "
+                          f"{dims[0] * dims[1]}")
 
-    import time
-
-    import torch
-
-    from .models.vxc import read_vxc
-    from .sim.simulate import Simulation
     from .utils.device import resolve_device
 
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         return _error(f"{e} (--device cpu)")
+    if dims is None:
+        return _run(args, device, None)
+    from .parallel.mesh import make_mesh
+
+    with _group(device) as device:
+        return _run(args, device, make_mesh(*dims, device=device))
+
+
+@contextlib.contextmanager
+def _group(device):
+    """This rank's device in the process group torchrun's environment
+    describes, or, outside torchrun, in a group of one rank on a file store
+    in a temporary directory; the group is destroyed on leaving.  NCCL on
+    the card of the local rank, gloo on the CPU."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+        kw = {"backend": "nccl", "device_id": device}
+    else:
+        kw = {"backend": "gloo"}
+    with tempfile.TemporaryDirectory(prefix="ec3d_mesh_") as tmp:
+        if "RANK" in os.environ:
+            dist.init_process_group(**kw)
+        else:
+            dist.init_process_group(init_method=f"file://{tmp}/store",
+                                    rank=0, world_size=1, **kw)
+        try:
+            yield device
+        finally:
+            dist.destroy_process_group()
+
+
+def _run(args, device, mesh) -> int:
+    """The run of ``main`` on ``device``, on this rank's block of
+    ``mesh`` if one is given."""
+    import gc
+    import time
+
+    import torch
+
+    from .models.vxc import read_vxc
+    from .sim.simulate import Simulation
 
     model = read_vxc(args.vxc)
     outdir = args.out if args.out is not None else model.solver.files
@@ -141,13 +216,15 @@ def main(argv=None) -> int:
         model,
         dtype=_dtype(args.dtype),
         dot_dtype=_dtype(args.dot_dtype) if args.dot_dtype else None,
-        device=device,
+        device=device if mesh is None else None,
+        mesh=mesh,
         coeff_dtype=_dtype(args.coeff_dtype) if args.coeff_dtype else None,
         precond=args.precond,
         warm_start=args.warm_start,
     )
 
-    info = not args.quiet
+    # on a mesh the first rank prints
+    info = not args.quiet and (mesh is None or mesh.rank == 0)
     if info:
         sdx, sdy, sdz = model.shape_xyz
         # the reference prints grid/domain/solver parameters during parsing
@@ -173,7 +250,8 @@ def main(argv=None) -> int:
               f"itmax={model.solver.itmax} bound={model.solver.bound}")
         card = (torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "cpu")
-        print(f"backend   : {card} ({device}) x1, dtype={args.dtype}, "
+        ranks = 1 if mesh is None else mesh.size
+        print(f"backend   : {card} ({device}) x{ranks}, dtype={args.dtype}, "
               f"dot_dtype={args.dot_dtype or args.dtype}, "
               f"route={_route(sim)}"
               f"{', precond=' + args.precond if args.precond else ''}")
@@ -221,6 +299,16 @@ def main(argv=None) -> int:
         print(f"solver    : {diag['total_iterations']} iterations total, "
               f"median {med}/step, "
               f"{len(diag['unconverged_steps'])} unconverged step(s)")
+    if mesh is not None:
+        # free the solve's graphs, which hold the group's collectives, and
+        # wait for every rank before the group goes
+        del sim, state
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.group)
     return 0
 
 

@@ -118,10 +118,12 @@ def whole_plan(shape_zyx, cond_z, sms: int = 132) -> WholePlan:
     marked not conducting (no cell there has a code other than 0).  At most
     WHOLE_CTAS_PER_SM CTAs an SM take the items in turn, each finishing its
     dots once.  At team7 (102x102x24, conductor on planes 2..6) that is 41
-    segments x (3 + 6) runs = 369 items, one CTA each on an H100."""
+    segments x (3 + 6) runs = 369 items, one CTA each on an H100.
+    ``cond_z = (0, 0)`` (no conducting plane: a z slab of the multi-device
+    tier off the conductor) gives air runs only."""
     nz, ny, nx = shape_zyx
     zb0, zb1 = cond_z
-    if not 0 <= zb0 < zb1 <= nz:
+    if tuple(cond_z) != (0, 0) and not 0 <= zb0 < zb1 <= nz:
         raise ValueError(f"conductor planes {cond_z} do not fit the grid's "
                          f"{nz}")
     air = runs(0, zb0, AIR_CHUNK) + runs(zb1, nz, AIR_CHUNK)

@@ -32,14 +32,19 @@ card as on the CPU, as the JAX package runs its jnp operator at float64;
 ``use_pallas=False`` (the JAX package's keyword: off, the hand-written
 kernels are not used) runs the same flat-roll tier at float32 or bfloat16.
 On a mesh (``parallel/mesh.py`` ``make_mesh``: one process per card over
-``torch.distributed``, z slabs) the operator is the sharded field tier
-(``parallel/shard_op.py``), every field is the rank's slab, the dots are
-all-reduced inside the solve, and ``run``/``run_scan`` return the global
-fields.  The solve is BiCGSTABwr, unpreconditioned or right-preconditioned
-with Jacobi, Chebyshev, Chebyshev on Jacobi, the multigrid V-cycle or
-ILU(0), as in the
-JAX package, its reductions in ``dot_dtype`` (None: the state's dtype);
-the coded operator's fused dots serve only ``dot_dtype=None``, as in JAX.
+``torch.distributed``, (z, y) blocks) the operator is the sharded tier
+(``parallel/shard_op.py``): per slab the coded kernel on z-only meshes
+where the coded operator applies, as in the JAX package, and per block the
+field kernels otherwise.  Every field is the rank's block, the dots are
+all-reduced inside the solve, ``run``/``run_scan`` return the global
+fields, and checkpoints hold the global fields (the first rank gathers and
+writes them; every rank resumes by cutting its block from the file).
+The solve is BiCGSTABwr, unpreconditioned or right-preconditioned with
+Jacobi, Chebyshev, Chebyshev on Jacobi, the multigrid V-cycle or ILU(0),
+as in the JAX package, its reductions in ``dot_dtype`` (None: the state's
+dtype); the coded operator's fused dots serve only ``dot_dtype=None``, as
+in JAX; on a mesh the dots are taken apart from the operator and summed
+over the ranks.
 ILU(0) (``solvers/ilu0.py``) factors the exported CSR on the host once and
 applies its factors as stencil operators: field-tier operators (the
 ``field_a``/``field_u`` kernels on the card) with a float32 or bfloat16
@@ -256,8 +261,8 @@ def _schedule(tran):
 class Simulation:
     """End-to-end simulation of a :class:`Model` on ``device`` (None: the
     current CUDA device, and a ``RuntimeError`` without one), or, with
-    ``mesh`` (:func:`~..parallel.mesh.make_mesh`), on this rank's z slab of
-    a mesh, on the mesh's device.
+    ``mesh`` (:func:`~..parallel.mesh.make_mesh`), on this rank's (z, y)
+    block of a mesh, on the mesh's device.
 
     ``use_pallas`` is the JAX package's keyword for the hand-written
     kernels (None: on at float32 and bfloat16, off at float64): off, the
@@ -330,10 +335,6 @@ class Simulation:
                     "per-shard field kernels (use_shard_map=True, no 'mg')")
             if precond == "ilu0":
                 raise ValueError("precond='ilu0' is single-device only")
-            if use_coded:
-                raise ValueError(
-                    "use_coded=True on a mesh is not ported: the mesh runs "
-                    "the per-shard field kernels, not per-shard coded ones")
         self.mesh = mesh
         self.model = model
         self.dtype = dtype
@@ -358,24 +359,28 @@ class Simulation:
         self.coeff_dtype = coeff_dtype
 
         # tier choice (JAX simulate.py:230-309): the coded operator where it
-        # applies; the field tier for every other float32 or bfloat16 run,
-        # any coeff_dtype included (JAX :252-253); the flat-roll operator
-        # without the kernels (float64, use_pallas=False); on a mesh the
-        # sharded field tier.  use_coded=None routes CodedUnsupported to
+        # applies, on one device or per slab of a z-only mesh; the field
+        # tier for every other float32 or bfloat16 run, any coeff_dtype
+        # included (JAX :252-253), on one device or per (z, y) block of a
+        # mesh; the flat-roll operator without the kernels (float64,
+        # use_pallas=False).  use_coded=None routes CodedUnsupported to
         # the field tier; an explicit use_coded=True never degrades.
+        n_y = mesh.n_y if mesh is not None else 1
         coded_ok = (self.use_pallas and dtype == torch.float32
                     and coeff_dtype is None and precond != "mg"
-                    and mesh is None)
+                    and n_y == 1)
         if use_coded and not coded_ok:
             why = ("use_pallas=False" if no_pallas
                    else f"coeff_dtype={coeff_dtype}" if coeff_dtype is not None
                    else "precond='mg'" if precond == "mg"
+                   else "mesh has a y decomposition" if n_y != 1
                    else f"dtype={dtype}")
             raise ValueError(
                 f"use_coded=True is incompatible with {why}; the coded "
-                "kernels require float32 state and coefficients")
+                "kernels require float32 state and coefficients (single "
+                "device or a z-decomposed mesh)")
         self.coded_op = None
-        if coded_ok and use_coded is not False:
+        if coded_ok and use_coded is not False and mesh is None:
             try:
                 # ilu0's factors live on the full grid, so it keeps a
                 # full-shape U (JAX simulate.py:261-265)
@@ -388,17 +393,27 @@ class Simulation:
         self.field_op = (FieldStencilOperator.from_assembled(self.system)
                          if self.use_pallas and self.coded_op is None
                          and mesh is None else None)
-        self.shard_op = (ShardedStencilOperator(
-            self.system, mesh, dtype, use_pallas=self.use_pallas,
-            coeff_dtype=coeff_dtype) if mesh is not None else None)
+        self.shard_op = None
+        if mesh is not None and coded_ok and use_coded is not False:
+            try:
+                self.shard_op = ShardedStencilOperator(
+                    self.system, mesh, dtype, use_pallas=True, model=model,
+                    use_coded=True)
+            except CodedUnsupported:
+                if use_coded:
+                    raise
+        if mesh is not None and self.shard_op is None:
+            self.shard_op = ShardedStencilOperator(
+                self.system, mesh, dtype, use_pallas=self.use_pallas,
+                coeff_dtype=coeff_dtype)
         # the single-device solver-space tier (None: the flat-roll operator,
-        # and the mesh, whose fields are slabs throughout)
+        # and the mesh, whose fields are blocks throughout)
         self._tier = (self.coded_op if self.coded_op is not None
                       else self.field_op)
         self.op = next(o for o in (self.shard_op, self._tier, self.system.op)
                        if o is not None)
         # the step's masks, on this Simulation's device: the system's, or
-        # on a mesh this rank's slabs
+        # on a mesh this rank's blocks
         sysm = self.system
         cut = (self.shard_op.shard if mesh is not None
                else lambda t: t)
@@ -505,13 +520,10 @@ class Simulation:
     def _own(self, flat: np.ndarray) -> np.ndarray:
         """The step's flat indices of the global flat cells ``flat`` that
         lie in this Simulation's fields: all of them, or on a mesh those of
-        this rank's slab, in its own numbering."""
+        this rank's block, in its own numbering."""
         if self.shard_op is None:
             return flat
-        plane = self._shape[1] * self._shape[2]
-        lo = self.shard_op.z0 * plane
-        mine = (flat >= lo) & (flat < lo + self._N)
-        return flat[mine] - lo
+        return self.shard_op.own(flat)
 
     def _zeros(self, *shape):
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
@@ -588,7 +600,7 @@ class Simulation:
                 pool=self._pool,
                 reduce=self.mesh.all_reduce if self.mesh is not None else None,
                 # NCCL's collectives between ranks cannot sit in a WHILE body
-                batched=self.mesh is not None and self.mesh.n_z > 1,
+                batched=self.mesh is not None and self.mesh.size > 1,
                 **self._solve_form())
         return self._loops[key]
 
@@ -783,9 +795,6 @@ class Simulation:
 
         if resume and checkpoint_dir is None:
             raise ValueError("resume=True requires checkpoint_dir")
-        if checkpoint_dir is not None and self.mesh is not None:
-            raise ValueError("checkpoints on a mesh are not ported: a mesh "
-                             "run writes and resumes none (checkpoint_dir)")
         start = 0
         state = initial_state
         fingerprint = None
@@ -799,6 +808,23 @@ class Simulation:
             state = self.init_state()
         return state, start, fingerprint
 
+    def _save_checkpoint(self, path, state, step_index, npoint, fingerprint):
+        """Write ``state`` (the step's layout) as the checkpoint at
+        ``path``.  On a mesh the first rank gathers the global fields and
+        writes them, the same file one device writes, and every rank
+        leaves once it is written, so that a resume on any rank finds it."""
+        from . import checkpoint as ckpt
+
+        sop = self.shard_op
+        if sop is not None:
+            state = _fields(state, sop.gather_first)
+        if sop is None or self.mesh.rank == 0:
+            ckpt.save_checkpoint(path, state, step_index, npoint, fingerprint)
+        if sop is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.group)
+
     def _run_steps(self, steps, state, start, fingerprint, output_dir=None,
                    on_output=None, progress=False, checkpoint_dir=None,
                    checkpoint_every=0):
@@ -807,8 +833,6 @@ class Simulation:
         checkpoints of :meth:`run` (JAX simulate.py:939-985).  Returns
         (state, step infos, io seconds: the time the loop stayed blocked on
         outputs and checkpoints, and the writer's drain)."""
-        from . import checkpoint as ckpt
-
         every = checkpoint_every if checkpoint_dir is not None else 0
         infos = []
         t_io = 0.0
@@ -819,7 +843,7 @@ class Simulation:
         # on a mesh the first rank writes the files
         writer = (_AsyncVtkWriter(self, output_dir)
                   if output_dir is not None
-                  and (mesh is None or self.mesh.index == 0) else None)
+                  and (mesh is None or self.mesh.rank == 0) else None)
         try:
             for idx in range(start, len(steps)):
                 t, out = steps[idx]
@@ -842,7 +866,7 @@ class Simulation:
                     t_io += _time.perf_counter() - t1
                 if every and (idx + 1) % every == 0:
                     t1 = _time.perf_counter()
-                    ckpt.save_checkpoint(
+                    self._save_checkpoint(
                         os.path.join(checkpoint_dir, f"ckpt_{idx + 1}.npz"),
                         state, idx + 1, out or 0, fingerprint)
                     last_ck = idx + 1
@@ -860,7 +884,7 @@ class Simulation:
         # the state it contains) and the loop didn't just write the
         # identical ckpt_<len>.npz itself
         if every and start < len(steps) and last_ck != len(steps):
-            ckpt.save_checkpoint(
+            self._save_checkpoint(
                 os.path.join(checkpoint_dir, f"ckpt_{len(steps)}.npz"),
                 state, len(steps), steps[-1][1] or 0, fingerprint)
         # on a mesh the global fields, on every rank, once at the end

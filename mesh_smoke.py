@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""The port's z-slab tier across cards: one process a card, NCCL between them.
+"""The port's multi-device tier across cards: one process a card, NCCL between
+them.
 
     torchrun --nproc-per-node 4 mesh_smoke.py
     torchrun --nproc-per-node 4 mesh_smoke.py --cpu --shape 16,16,14 --steps 3
+    python3 mesh_smoke.py --cli 4 [--cpu]
 
 (``python -m torch.distributed.run`` where ``torchrun`` is not on the path.)
 Each rank takes the card of its local rank, joins the NCCL group that
 torchrun's environment describes (gloo on the CPU with ``--cpu``) and runs
 ``case_static`` (102x102x24 by default) on ``make_mesh(N)``, its z slab of
-the grid, at float32 and at float64 with float64 dots, each Simulation
-graphed: a first step captures the solve, then ``--steps`` steps are timed.
-Every rank then runs the same model on its own card alone (the unsharded
-field tier at float32, the flat-roll operator at float64), solves step 1
+the grid, at float32 on the coded tier (the default there) and on the field
+tier (``use_coded=False``), and at float64 with float64 dots; then, where N
+is even, on ``make_mesh(N / 2, 2)``, its (z, y) block, at float32 (the
+field tier) and float64.  Each Simulation is graphed: a first step captures
+the solve, then ``--steps`` steps are timed.  Every rank then runs the same
+model on its own card alone (the same tier at float32: the unsharded coded
+operator or field tier; the flat-roll operator at float64), solves step 1
 at float64 to 1e-8 (right-Jacobi: the converged solution) and checks:
 
 * float64: A within 1e-9 of scale (the largest |A| of the unsharded run
@@ -37,6 +42,17 @@ at float64 to 1e-8 (right-Jacobi: the converged solution) and checks:
 Rank 0 prints the device, each run's iterations and ms/iteration at this
 world size, and, last, one JSON line with ``"ok"``.  A failed check raises,
 and torchrun stops the other ranks.
+
+``--cli N`` (not under torchrun) runs the CLI as users start it on a mesh:
+``python -m torch.distributed.run --standalone --nproc-per-node N -m
+eddy_currents_3d_tpu_torch in.vxc --mesh N`` and ``--mesh N/2,2``, on the
+static case (``--shape``, 3 steps, an output every step) at float64 against
+the CLI on one card (every printed line the same but the backend line and
+the wall times; the field files, which hold float32, within 1e-9 of each
+field's scale beyond one float32 rounding of the one card's value: two
+float64 answers 1e-10 apart can round to neighbouring float32 values; the
+source files byte for byte), and at float32 (converged, timed); torchrun
+must exit 0, every rank having left.
 """
 
 import argparse
@@ -88,16 +104,118 @@ def _run(sim, steps, note):
     return st, diag, wall, n_cap, len(calls) - n0
 
 
+def _cli_runs(n, cpu, shape):
+    """``--cli``: the CLI on one card and under torchrun on ``n`` ranks as
+    ``--mesh n`` and ``--mesh n/2,2``; raises on a failed check."""
+    import tempfile
+
+    import numpy as np
+
+    from eddy_currents_3d_tpu_torch.io.vtk import read_vtk_vectors
+    from eddy_currents_3d_tpu_torch.testing.cases import case_static
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    if cpu:
+        env["OMP_NUM_THREADS"] = "1"
+    dev = ["--device", "cpu"] if cpu else []
+    meshes = [str(n)] + ([f"{n // 2},2"] if n % 2 == 0 else [])
+
+    def run(cwd, ranks, args):
+        cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(ranks)] if ranks else [sys.executable])
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd + ["-m", "eddy_currents_3d_tpu_torch",
+                                  "../in.vxc", "-o", "out"] + dev + args,
+                           cwd=cwd, env=env, capture_output=True, text=True,
+                           timeout=240)
+        wall = time.perf_counter() - t0
+        if p.returncode != 0 or "unconverged step(s)" not in p.stdout:
+            raise AssertionError(f"CLI {ranks} ranks {args}: exit "
+                                 f"{p.returncode}\n{p.stdout[-2000:]}\n"
+                                 f"{p.stderr[-4000:]}")
+        return p.stdout, wall
+
+    lines = lambda text: [ln for ln in text.splitlines()
+                          if not ln.startswith(("backend", "Tcalc"))]
+    pick = lambda text, key: next(ln for ln in text.splitlines()
+                                  if ln.startswith(key))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "in.vxc"), "w") as f:
+            f.write(case_static(shape_xyz=shape, steps=3, jump=0.001))
+        for dtype in ("f64", "f32"):
+            ref = os.path.join(tmp, f"one_{dtype}")
+            os.makedirs(ref)
+            text1, w1 = run(ref, 0, ["--dtype", dtype])
+            print(f"[cli] one card {dtype}: {pick(text1, 'Tcalc')}, command "
+                  f"{w1:.1f} s", flush=True)
+            for mesh in meshes:
+                cwd = os.path.join(tmp, f"m{mesh}_{dtype}")
+                os.makedirs(cwd)
+                text, wall = run(cwd, n, ["--mesh", mesh, "--dtype", dtype])
+                gap = raw = 0.0
+                names = sorted(os.listdir(os.path.join(ref, "out")))
+                same = sorted(os.listdir(os.path.join(cwd, "out"))) == names
+                for name in names if dtype == "f64" else ():
+                    a = os.path.join(ref, "out", name)
+                    b = os.path.join(cwd, "out", name)
+                    if name.startswith("src_"):
+                        with open(a, "rb") as fa, open(b, "rb") as fb:
+                            same = same and fa.read() == fb.read()
+                        continue
+                    fa, fb = read_vtk_vectors(a), read_vtk_vectors(b)
+                    for key in fa:
+                        if key != "dims":
+                            scale = max(np.abs(fa[key]).max(), 1e-30)
+                            d = np.abs(fb[key].astype(np.float64)
+                                       - fa[key].astype(np.float64))
+                            big = np.maximum(np.abs(fa[key]),
+                                             np.abs(fb[key]))
+                            ulp = np.spacing(big.astype(np.float32)).astype(
+                                np.float64)
+                            raw = max(raw, d.max() / scale)
+                            gap = max(gap, (d - ulp).max() / scale)
+                print(f"[cli] --mesh {mesh} {dtype} under torchrun: "
+                      f"{pick(text, 'backend')}; {pick(text, 'Tcalc')}; "
+                      f"{[ln for ln in text.splitlines() if 'iterations total' in ln]}"
+                      f"; torchrun exited 0 after {wall:.1f} s; files as "
+                      f"one card's: {same}"
+                      + (f", fields within {raw:.2e} of scale, {gap:.2e} "
+                         f"beyond one float32 rounding (limit 1e-9), lines "
+                         f"equal: {lines(text) == lines(text1)}"
+                         if dtype == "f64" else ""), flush=True)
+                if not same or (dtype == "f64" and (
+                        gap > 1e-9 or lines(text) != lines(text1))):
+                    raise AssertionError(f"--mesh {mesh} {dtype} differs "
+                                         "from one card")
+                out[f"{mesh} {dtype}"] = {"command_s": wall, "gap": raw,
+                                          "beyond_rounding": gap}
+    print(json.dumps({"ok": True, "cli": out}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--cpu", action="store_true",
                    help="gloo ranks on the CPU (a rehearsal)")
     p.add_argument("--shape", default="102,102,24", help="nx,ny,nz")
     p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--cli", type=int, default=0, metavar="N",
+                   help="run the CLI under torchrun on N ranks against one "
+                   "card (not under torchrun itself)")
     p.add_argument("--deadline", type=float, default=600.0,
                    help="seconds after which every rank prints its Python "
                    "stacks and exits (a collective waits at most this long)")
     args = p.parse_args(argv)
+    if args.cli:
+        if not args.cpu and not torch.cuda.is_available():
+            print("mesh_smoke: no CUDA device (--cpu rehearses on the CPU)",
+                  file=sys.stderr)
+            return 1
+        shape = tuple(int(n) for n in args.shape.split(","))
+        return _cli_runs(args.cli, args.cpu, shape)
     if "RANK" not in os.environ:
         print("mesh_smoke: start it with torchrun --nproc-per-node N",
               file=sys.stderr)
@@ -191,14 +309,22 @@ def main(argv=None) -> int:
             f"{f64_to_conv:.3f} tol scale from it; float32 bound "
             f"{bound:.3f}")
         out = {"f64_to_conv": f64_to_conv}
-        for label, dtype, dot, ref_kw in (
-                ("f32", f32, None, {"use_coded": False}),
-                ("f64", f64, f64, {})):
+        configs = [("f32 coded z", f32, None, mesh, {}),
+                   ("f32 field z", f32, None, mesh, {"use_coded": False}),
+                   ("f64 z", f64, f64, mesh, {})]
+        if world % 2 == 0:
+            yz = make_mesh(world // 2, 2)
+            configs += [("f32 field zy", f32, None, yz, {"use_coded": False}),
+                        ("f64 zy", f64, f64, yz, {})]
+        for label, dtype, dot, on, kw in configs:
             note(f"{label}: mesh run")
-            sim = Simulation(model, dtype, dot, mesh=mesh)
+            sim = Simulation(model, dtype, dot, mesh=on, **kw)
+            coded = sim.shard_op.use_coded
+            if coded != (label == "f32 coded z"):
+                raise AssertionError(f"{label}: the mesh took another tier")
             st, diag, wall, n_cap, n_after = _run(sim, args.steps, note)
             note(f"{label}: one-device run")
-            ref = Simulation(model, dtype, dot, device=dev, **ref_kw)
+            ref = Simulation(model, dtype, dot, device=dev, **kw)
             s1, d1 = sim.run(num_steps=1)
             r1, _ = ref.run(num_steps=1)
             step = {"mesh": held(step1(sim)), "one card": held(step1(ref))}
@@ -206,7 +332,7 @@ def main(argv=None) -> int:
                 say(f"[mesh] {label} step 1, {who}: true residual {rel:.6f}"
                     f" (tol {tol}); {to64:.3f} tol scale from the float64 "
                     f"run, {toc:.3f} from the converged solution")
-                if rel >= tol or (label == "f32" and toc > bound):
+                if rel >= tol or (dtype == f32 and toc > bound):
                     raise AssertionError(
                         f"{label} step 1, {who}: true residual {rel}, "
                         f"{toc} tol scale from the converged solution "
@@ -217,12 +343,14 @@ def main(argv=None) -> int:
             gap = (st.A - sr.A).abs().max().item() / scale
             its = diag["iterations"]
             ms = wall / diag["total_iterations"] * 1e3
-            say(f"[mesh] {label} {shape} on {world} slabs of "
-                f"{sim.shard_op.NZl} planes: iterations {its} (one device "
+            sop = sim.shard_op
+            say(f"[mesh] {label} {shape} on {sop.n_z}x{sop.n_y} (z, y) "
+                f"blocks of {sop.block_zyx} ({'coded' if coded else 'field'}"
+                f" tier): iterations {its} (one device "
                 f"{dr['iterations']}); max |dA| / scale after step 1 "
                 f"{gap1:.2e} ({gap1 / tol:.3f} tol scale), after "
                 f"{args.steps} steps {gap:.2e} ({gap / tol:.3f})"
-                f"{', limit 1e-9' if label == 'f64' else ''}; "
+                f"{', limit 1e-9' if dtype == f64 else ''}; "
                 f"{ms:.3f} ms/iteration at world size {world}, "
                 f"{wall / args.steps * 1e3:.2f} ms/step; captures "
                 f"{sim.captures}; all-reduce calls {n_cap} in the capturing "
@@ -233,12 +361,13 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{label}: step-1 gap {gap1}, captures "
                                      f"{sim.captures}, all-reduce calls "
                                      f"{n_cap}, {n_after}, iterations {its}")
-            if label == "f64" and (its != dr["iterations"]
-                                   or max(gap1, gap) > 1e-9):
+            if dtype == f64 and (its != dr["iterations"]
+                                 or max(gap1, gap) > 1e-9):
                 raise AssertionError(f"f64: iterations {its} against "
                                      f"{dr['iterations']}, gaps {gap1}, "
                                      f"{gap}")
             out[label] = {"iterations": its, "ms_per_iteration": ms,
+                          "one_device_iterations": dr["iterations"],
                           "gap_step1": gap1, "gap": gap,
                           "step1": {k: dict(zip(("true_relres", "to_f64",
                                                   "to_conv"), v))

@@ -1,4 +1,5 @@
-"""Ranks of the port's z-slab mesh on the CPU, for tests/test_torch_shard_op.py.
+"""Ranks of the port's (z, y) mesh on the CPU, for the tests of the
+multi-device tier (tests/test_torch_shard_*.py).
 
 :func:`spawn` starts ``world`` processes with torch.multiprocessing's spawn
 start method, each a gloo rank of one process group whose store is a file
@@ -8,6 +9,11 @@ rank's results.  The ranks import torch and the port, never jax: the JAX
 package's runs stay in the parent test process, and the two sides meet as
 numpy arrays.  A task groups several checks, so that a file of tests
 spawns few groups.
+
+:func:`handover_div` runs the sharded ``apply_div`` of every block of a
+mesh in one process (``parallel/shard_op.py`` ``in_process_blocks``), each
+block's ghosts taken straight from its neighbours' messages, as
+``handover_apply`` does the apply.
 """
 
 import os
@@ -20,6 +26,30 @@ STATIC = (16, 16, 14)       # the JAX package's tests/test_shard_op.py grid
 UNEVEN = (12, 12, 13)       # nz = 13 over 4 ranks: one padding plane
 MOVING = (16, 16, 12)
 TEAM7 = (102, 102, 24)      # chip_smoke.py's team7 grid
+CODED = (16, 14, 12)        # the JAX package's coded shard Simulation grid
+UNEVEN_YZ = (12, 13, 11)    # ny = 13, nz = 11 over (2, 4): both axes pad
+
+
+def handover_div(sops, A):
+    """The sharded apply_div of the global ``A`` over ``sops``
+    (``in_process_blocks``), each block's ghosts handed over as
+    ``handover_apply`` hands them over: the global yU."""
+    from eddy_currents_3d_tpu_torch.parallel.shard_op import OPPOSITE
+
+    As = [s.shard(A) for s in sops]
+    out = []
+    for s, a in zip(sops, As):
+        yU = s.local_div(a)
+        ghosts = {}
+        for side, back in OPPOSITE.items():
+            peer = getattr(s.mesh, side)
+            if peer is not None:
+                g = sops[peer].div_message(As[peer], back)
+                if g is not None:
+                    ghosts[side] = g
+        s.fold_div(yU, ghosts)
+        out.append(yU)
+    return sops[0]._join(out)
 
 
 def _rank(rank, world, tmp, task, kw):
@@ -73,7 +103,8 @@ class _Recorder:
     """Records, in order, the exchange's posts and waits and the local
     field functions of a sharded apply."""
 
-    def __init__(self, shard_op, monkey):
+    def __init__(self, shard_op, monkey,
+                 names=("field_a_reference", "field_u_reference")):
         self.calls = []
         real_post = shard_op.dist.batch_isend_irecv
         rec = self
@@ -91,9 +122,10 @@ class _Recorder:
             return [Req(r) for r in real_post(ops)]
 
         monkey(shard_op.dist, "batch_isend_irecv", post)
-        for name in ("field_a_reference", "field_u_reference"):
+        for name in names:
             real = getattr(shard_op, name)
-            monkey(shard_op, name, self._wrap(name[:7], real))
+            monkey(shard_op, name, self._wrap(name.replace("_reference", ""),
+                                              real))
 
     def _wrap(self, name, fn):
         def run(*a, **k):
@@ -199,7 +231,8 @@ def task_sim(vtk_dir):
                      "unconverged": diag["unconverged_steps"],
                      "distance": np.asarray(st.motion.distance),
                      "movestop": np.asarray(st.motion.movestop),
-                     "slab": tuple(sim.shard_op.padded_zyx)}
+                     "slab": tuple(sim.shard_op.padded_zyx),
+                     "coded": sim.shard_op.use_coded}
     sim = Simulation(_model(MOVING, 6, True), f64, f64, mesh=mesh)
     state = sim.shard_state(sim.init_state())
     put, undo = _patched()
@@ -273,4 +306,107 @@ def task_team7():
             "iterations": int(res.iterations), "relres": float(res.relres)}
 
 
-TASKS = {"four": task_four, "two": task_two, "team7": task_team7}
+def _sim_out(st, diag, sim):
+    """A run's global fields (bfloat16 widened to float32, exactly),
+    diagnostics and layout, as numpy and plain values."""
+    host = lambda t: (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return {"A": host(st.A), "carry": host(st.carry),
+            "iterations": diag["iterations"],
+            "unconverged": diag["unconverged_steps"],
+            "coded": sim.shard_op.use_coded,
+            "padded_zyx": tuple(sim.shard_op.padded_zyx)}
+
+
+def task_coded():
+    """The coded tier on 4 z slabs (CODED): the float32 Simulation's
+    default run over 3 steps and a jacobi run over 2, and the order of one
+    coded apply's exchange and local kernel."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.parallel import shard_op
+    from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dist.get_world_size())
+    out = {}
+    for name, steps, kw in (("f32", 3, {}), ("jacobi", 2,
+                                            {"precond": "jacobi"})):
+        sim = Simulation(_model(CODED, steps), torch.float32, mesh=mesh,
+                         **kw)
+        out[name] = _sim_out(*sim.run(), sim)
+    put, undo = _patched()
+    rec = _Recorder(shard_op, put, ("coded_matvec",))
+    try:
+        sim.shard_op.apply(sim.shard_op.pad_state(
+            random_state(sim.model, 3, torch.float32)))
+    finally:
+        undo()
+    out["order"] = rec.calls
+    return out
+
+
+def task_yz4():
+    """A (2, 2) mesh: float64 with float64 dots (STATIC, 3 steps), the
+    float32 default (the field tier on a y decomposition), bfloat16 state
+    and float32 coefficients at bfloat16 state (one step each), the order
+    of one apply's exchange and local field functions, and two moving-coil
+    steps with every field-moving collective made to raise."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.assembly.assemble import assemble_operator
+    from eddy_currents_3d_tpu_torch.parallel import shard_op
+    from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, 2)
+    f64 = torch.float64
+    out = {}
+    runs = {"f64": (3, None, dict(dtype=f64, dot_dtype=f64)),
+            "f32": (3, None, dict(dtype=torch.float32)),
+            "bf16": (3, 1, dict(dtype=torch.bfloat16)),
+            "bf16_f32coef": (3, 1, dict(dtype=torch.bfloat16,
+                                        coeff_dtype=torch.float32))}
+    for name, (steps, n, kw) in runs.items():
+        sim = Simulation(_model(STATIC, steps), mesh=mesh, **kw)
+        out[name] = _sim_out(*sim.run(num_steps=n), sim)
+        out[name]["coef"] = str(sim.shard_op.local.ka.dtype)
+    model = _model(STATIC)
+    sop = shard_op.ShardedStencilOperator(
+        assemble_operator(model, f64, "cpu"), mesh, f64)
+    put, undo = _patched()
+    rec = _Recorder(shard_op, put)
+    try:
+        sop.apply(sop.pad_state(random_state(model, 3)))
+    finally:
+        undo()
+    out["order"] = rec.calls
+    sim = Simulation(_model(MOVING, 6, True), f64, f64, mesh=mesh)
+    state = sim.shard_state(sim.init_state())
+    put, undo = _patched()
+    _no_gather(put)
+    its = []
+    try:
+        for t, _ in sim.steps[:2]:
+            state, info = sim._step(state, t)
+            its.append(int(info.iterations))
+    finally:
+        undo()
+    out["no_gather_iterations"] = its
+    return out
+
+
+def task_yz8():
+    """Float64 Simulations on 8 ranks: STATIC on (4, 2) with float64 dots
+    (3 steps), and UNEVEN_YZ on (2, 4) (2 steps)."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
+
+    f64 = torch.float64
+    out = {}
+    for name, shape, steps, dims, kw in (
+            ("static", STATIC, 3, (4, 2), dict(dot_dtype=f64)),
+            ("uneven", UNEVEN_YZ, 2, (2, 4), {})):
+        sim = Simulation(_model(shape, steps), f64, mesh=make_mesh(*dims),
+                         **kw)
+        out[name] = _sim_out(*sim.run(), sim)
+    return out
+
+
+TASKS = {"four": task_four, "two": task_two, "team7": task_team7,
+         "coded": task_coded, "yz4": task_yz4, "yz8": task_yz8}

@@ -4,7 +4,9 @@ package's CLI.
 
 * Behaviour: end to end, the SOLVER DIR default with ``-q``, a missing
   input (rc 2), ``--scan``'s bytes equal the loop's; the refusals (rc 2):
-  ``--mesh``, the checkpoint-flag misuses.  ``--dtype f64`` runs on the
+  ``--mesh`` with a world size other than its blocks' (here 1, outside
+  torchrun; tests/test_torch_cli_mesh.py runs it under torchrun), the
+  checkpoint-flag misuses.  ``--dtype f64`` runs on the
   card (a card test) as on the CPU.
 * Parity: ``AssembledSystem.matrix_stats()`` equals JAX's exactly on the
   static, moving, LIM and no-conductor cases; the f64 CLI's field files,
@@ -107,8 +109,8 @@ def test_cli_scan_outputs_match_host_loop(case_file, tmp_path, dtype):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--mesh", "4"], "multi-device tier is not ported"),
-    (["--mesh", "4,2", "--device", "cpu"], "multi-device tier is not ported"),
+    (["--mesh", "4"], "but the world size is 1"),
+    (["--mesh", "4,2", "--device", "cpu"], "takes 8 ranks"),
     (["--resume"], "--resume requires --checkpoint-dir"),
     (["--checkpoint-dir", "ck"], "without --checkpoint-every"),
 ], ids=["mesh", "mesh-cpu", "resume", "checkpoint-dir"])

@@ -170,11 +170,13 @@ def test_float64_on_the_card_matches_the_cpu(cuda):
 
 
 def test_mesh_of_one_rank_over_nccl(cuda, tmp_path):
-    """Simulation(mesh=make_mesh(1)) over NCCL: the sharded field tier at
-    world size 1 equals the unsharded use_coded=False run bit for bit, its
-    solve captured once with the all-reduce of its dots inside (the
-    all-reduce's Python calls stop after the capture), and a run makes no
-    synchronizing call."""
+    """Simulation(mesh=make_mesh(1)) over NCCL, each solve captured once
+    with the all-reduce of its dots inside (the all-reduce's Python calls
+    stop after the capture), and a run makes no synchronizing call: with
+    use_coded=False the sharded field tier at world size 1 equals the
+    unsharded use_coded=False run bit for bit; the float32 default, the
+    per-slab coded tier, converges and lies within 4 tol of scale of the
+    float64 run after step 1."""
     import torch.distributed as dist
 
     from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
@@ -187,20 +189,31 @@ def test_mesh_of_one_rank_over_nccl(cuda, tmp_path):
         real = mesh.all_reduce
         object.__setattr__(mesh, "all_reduce",
                            lambda t: calls.append(1) or real(t))
-        sim = Simulation(_model(), torch.float32, mesh=mesh)
-        ref = Simulation(_model(), torch.float32, device=cuda,
-                         use_coded=False)
-        sim.run(num_steps=1)                  # captures the solve
-        n = len(calls)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            st, d = sim.run()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        sr, dr = ref.run()
-        assert len(calls) == n and sim.captures == 1
-        assert d["iterations"] == dr["iterations"]
-        assert torch.equal(st.A, sr.A) and torch.equal(st.carry, sr.carry)
+        for kw in ({"use_coded": False}, {}):
+            sim = Simulation(_model(), torch.float32, mesh=mesh, **kw)
+            assert sim.shard_op.use_coded == (not kw)
+            s1, _ = sim.run(num_steps=1)          # captures the solve
+            n = len(calls)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st, d = sim.run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert len(calls) == n and sim.captures == 1
+            assert not d["unconverged_steps"]
+            if kw:
+                ref = Simulation(_model(), torch.float32, device=cuda, **kw)
+                sr, dr = ref.run()
+                assert d["iterations"] == dr["iterations"]
+                assert (torch.equal(st.A, sr.A)
+                        and torch.equal(st.carry, sr.carry))
+                continue
+            model = _model()
+            s64, _ = Simulation(model, torch.float64, device="cpu").run(
+                num_steps=1)
+            scale = model.solver.tolerance * s64.A.abs().max().item()
+            assert (s1.A.cpu().double() - s64.A).abs().max().item() <= \
+                4 * scale
     finally:
         dist.destroy_process_group()
 

@@ -18,8 +18,9 @@ runs).  The JAX package runs in this process on its 8 fake host devices
   the stencil kernels' bound against float64 (tests/test_torch_field.py).
 * Simulation at float64 with float64 dots: within 1e-9 of scale of the
   single-device port with the same iterations, and of JAX's own sharded
-  run; nz = 13 over 4 ranks too; ``jacobi`` converges; at float32 within
-  4 tol of scale of the single-device field tier.
+  run; nz = 13 over 4 ranks too; ``jacobi`` converges; at float32 (the
+  coded tier, the default on a z-only mesh as in JAX) within 4 tol of scale
+  of the single-device field tier.
 * The moving coil over 5 steps: the motion state bit for bit, A within
   1e-6 of scale.
 * Halos: a step runs with every collective that moves whole fields made to
@@ -206,10 +207,11 @@ def test_sharded_jacobi_converges(four):
 
 
 def test_sharded_f32_matches_the_field_tier(four):
-    """float32 on the mesh, on the field kernels' plain versions, against
-    the single-device field tier."""
+    """float32 on the mesh, the coded tier's plain version per slab,
+    against the single-device field tier."""
     res = four[0]["sim"]["f32"]
     st, diag = _single(STATIC, dtype=torch.float32, use_coded=False)
+    assert res["coded"] and not four[0]["sim"]["f64"]["coded"]
     assert not res["unconverged"]
     _close(res["A"], st.A.numpy().astype(np.float64),
            4 * 5e-3, np.abs(st.A.numpy()).max())
@@ -292,7 +294,12 @@ def test_mesh_run_writes_the_global_vtk(four, vtk_dir, tmp_path):
 
 def test_mesh_options_raise():
     """What the port's mesh does not take raises by name (one rank, gloo
-    on a file store); make_mesh checks the group and the mesh shape."""
+    on a file store); make_mesh checks the group and the mesh shape.  What
+    it has come to take runs: use_coded=True takes the coded tier, the
+    float32 default does too (as in JAX, coded_op stays None: the tier is
+    the shard operator's), checkpoints are written on a mesh, and a mesh
+    of one rank has no neighbour along y either."""
+    import os
     import tempfile
 
     import torch.distributed as dist
@@ -304,21 +311,23 @@ def test_mesh_options_raise():
         dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                                 rank=0, world_size=1)
         try:
-            with pytest.raises(ValueError, match="n_z=2 but"):
+            with pytest.raises(ValueError, match="n_z=2, n_y=1 but"):
                 make_mesh(2)
-            with pytest.raises(ValueError, match="n_y=2"):
+            with pytest.raises(ValueError, match="n_y=2 but"):
                 make_mesh(1, 2)
             mesh = make_mesh(1)
             assert mesh.device == CPU and mesh.lo is None and mesh.hi is None
+            assert mesh.n_y == 1 and mesh.ylo is None and mesh.yhi is None
             for kw, msg in (({"precond": "mg"}, "GSPMD tier"),
                             ({"use_shard_map": False}, "GSPMD tier"),
-                            ({"precond": "ilu0"}, "single-device only"),
-                            ({"use_coded": True}, "use_coded=True on a mesh")):
+                            ({"precond": "ilu0"}, "single-device only")):
                 with pytest.raises(ValueError, match=msg):
                     Simulation(mt, mesh=mesh, **kw)
+            assert Simulation(mt, mesh=mesh, use_coded=True).shard_op.use_coded
             sim = Simulation(mt, mesh=mesh)
-            assert sim.shard_op is not None and sim.coded_op is None
-            with pytest.raises(ValueError, match="checkpoints on a mesh"):
-                sim.run(checkpoint_dir=tmp, checkpoint_every=1)
+            assert sim.coded_op is None and sim.shard_op.use_coded
+            ck = os.path.join(tmp, "ck")
+            sim.run(checkpoint_dir=ck, checkpoint_every=1)
+            assert sorted(os.listdir(ck)) == ["ckpt_1.npz", "ckpt_2.npz"]
         finally:
             dist.destroy_process_group()
