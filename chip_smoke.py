@@ -219,6 +219,19 @@ Phases, each printed before the last line:
    use_coded=False equal bit for bit to the unsharded use_coded=False run;
    and the CLI with --mesh 1 over NCCL as a subprocess, its files within
    4 tol scale of the one-device CLI's.
+20. (after phase 19) the multigrid V-cycle on a mesh
+   (parallel/shard_mg.py) at team7: in one process, the ghosts and the
+   gather handed over locally, team7 in 2 and 4 z slabs and 2x2 (z, y)
+   blocks at float32 against the single-device V-cycle on the card within
+   SLAB_TOL of scale, with field_a's launches a V-cycle (each distributed
+   level's applies once a block, the replicated levels' once) and the
+   time of each; Simulation(precond="mg", mesh=make_mesh(1)) over NCCL,
+   graphed, 5 steps under set_sync_debug_mode("error"), at float32 within
+   4 tol scale of the float64 CPU mg run after step 1 and bit for bit
+   with the unsharded mg run, and at float64 within F64_GAP of scale of
+   the unsharded float64 mg run on the card with the same iterations;
+   use_shard_map=False over NCCL bit for bit with the field mesh
+   (use_coded=False); ms/iteration of each beside the unsharded run's.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is the card's name and power limit; the one before it the kernels' JSON
@@ -232,12 +245,13 @@ run for the bfloat16-state field_a_bf16 and field_u_bf16, phase 19's
 5-step run for field_a_f32coef and field_u_f32coef, bfloat16 state with
 float32 coefficients; the field records also carry the route the run
 took, "kernel_route", the bfloat16-state ones their launches on each
-route, "launches_by_route", and coded_matvec's record its launches on
-phase 19's coded mesh of one rank, "mesh"), with its bound (bytes over 3.35 TB/s or
-operations over 67 TFLOP/s FP32, the larger) and the library call's time
-where one PyTorch call computes the same function; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
-and prints no result.
+route, "launches_by_route", coded_matvec's record its launches on
+phase 19's coded mesh of one rank, "mesh", and field_a's its launches on
+phase 20's float32 mg mesh of one rank, "mesh_mg"), with its bound (bytes
+over 3.35 TB/s or operations over 67 TFLOP/s FP32, the larger) and the
+library call's time where one PyTorch call computes the same function;
+the last line is {"ok": true, "device": {...}}.  Without a CUDA device
+the script exits 1 and prints no result.
 """
 
 import contextlib
@@ -2222,6 +2236,167 @@ def phase_cli_mesh(dev):
         raise AssertionError(f"CLI --mesh 1: {gap} tol scale")
 
 
+def _vcycle_launches(mg):
+    """field_a launches of one V-cycle of ``mg`` (parallel/shard_mg.py):
+    two applies a level but the coarsest (the residual and the one
+    post-smoothing sweep), coarse_sweeps - 1 on the coarsest, every
+    distributed level's once a block."""
+    nb = len(mg.meshes)
+    if mg.rep is None:
+        return nb * 2 * (len(mg.levels) - 1) + mg.coarse_sweeps - 1
+    return (nb * 2 * len(mg.levels) + 2 * (len(mg.rep.levels) - 2)
+            + mg.coarse_sweeps - 1)
+
+
+def phase_mesh_mg(recs, model, dev, ref64):
+    """[20] the multigrid V-cycle on a mesh (parallel/shard_mg.py) at team7:
+
+    * in one process, the ghosts and the gather handed over locally: team7
+      in 2 and 4 z slabs and 2x2 (z, y) blocks, float32, the distributed
+      V-cycle against the single-device V-cycle on the card on the same
+      input, and both against the plain V-cycle (build_mg(kernels=False):
+      torch ops in place of field_a at every level, the block levels'
+      (3, 6, 102, 102), (3, 12, 51, 102), (3, 3, 51, 51) and the replicated
+      (3, 6, 26, 26), (3, 3, 13, 13) included), within SLAB_TOL of scale,
+      its field_a launches a V-cycle (_vcycle_launches), and its time
+      against the single-device one's;
+    * Simulation(precond="mg", mesh=make_mesh(1)) over NCCL, graphed, 5
+      steps under set_sync_debug_mode("error"): float32 within 4 tol scale
+      of the float64 CPU mg run after step 1 and bit for bit with the
+      unsharded mg run (a mesh of one holds every level and gathers
+      nothing), field_a launched at least 2 + 2 x (one V-cycle's
+      launches) a solver iteration (two applies and two V-cycles; the
+      setup's apply and the finish's V-cycle besides); float64 within
+      F64_GAP of scale of the unsharded float64 mg run on the card with
+      the same iterations;
+    * use_shard_map=False over NCCL (the JAX package's GSPMD tier) bit for
+      bit with the field mesh (use_coded=False), 5 steps, within 4 tol
+      scale of phase 6's float64 CPU run (``ref64``) after step 1;
+
+    ms/iteration of each mesh run beside its unsharded run's.  Returns
+    field_a's record of the float32 mesh mg run."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
+    from eddy_currents_3d_tpu_torch.parallel.shard_mg import (handover_vcycle,
+                                                              in_process_mg)
+    from eddy_currents_3d_tpu_torch.solvers.multigrid import build_mg
+
+    system = recs["team7"]["system"]
+    ka = system.op.ka
+    one = build_mg(ka, dtype=torch.float32, device=dev)
+    r = _inputs(model, dev, 8)[0].A
+    plain = build_mg(ka, dtype=torch.float32, device=dev,
+                     kernels=False).apply_scalar(r)
+    (ref, counts) = counted(lambda: one.apply_scalar(r))
+    torch.cuda.synchronize()
+    one_ms = cuda_ms(lambda: one.apply_scalar(r), 10)
+    scale = ref.abs().max().item()
+    pscale = plain.abs().max().item()
+    one_err = (ref - plain).abs().max().item() / pscale
+    say(f"[20] single-device V-cycle at team7 on the card: levels "
+        f"{[lvl.shape for lvl in one.levels]}, field_a launches "
+        f"{counts['field_a']} a V-cycle, {one_ms * 1e3:.1f} us; against the "
+        f"plain V-cycle err {one_err:.2e} of scale (limit {SLAB_TOL:g})")
+    if not one_err <= SLAB_TOL:
+        raise AssertionError(f"single-device V-cycle vs plain: {one_err}")
+    errs = {"plain": one_err}
+    for dims in ((2, 1), (4, 1), (2, 2)):
+        sops = _blocks(system, *dims, dev)
+        mg = in_process_mg(ka, sops, dtype=torch.float32)
+        got, counts = counted(lambda: handover_vcycle(mg, sops, r))
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item() / scale
+        perr = (got - plain).abs().max().item() / pscale
+        want = _vcycle_launches(mg)
+        ms = cuda_ms(lambda: handover_vcycle(mg, sops, r), 10)
+        g = len(mg.levels) - 1
+        say(f"[20] team7 V-cycle on {dims[0]}x{dims[1]} (z, y) blocks in one "
+            f"process: blocks hold levels {[lvl.shape for lvl in mg.levels]}"
+            + (f", gather at level {g} (replicated levels "
+               f"{[lvl.shape for lvl in mg.rep.levels[1:]]})"
+               if mg.rep is not None else ", no gather")
+            + f"; against the single-device V-cycle err {err:.2e} of scale, "
+            f"against the plain one {perr:.2e} (limit {SLAB_TOL:g}); field_a "
+            f"launches {counts['field_a']} "
+            f"(expected {want}); {ms * 1e3:.1f} us a V-cycle in one process "
+            f"(block copies and hand-overs included), single device "
+            f"{one_ms * 1e3:.1f} us")
+        if not (max(err, perr) <= SLAB_TOL and counts["field_a"] == want):
+            raise AssertionError(f"mesh V-cycle {dims}: err {err}, against "
+                                 f"plain {perr}, field_a {counts['field_a']} "
+                                 f"(expected {want})")
+        errs[f"{dims[0]}x{dims[1]}"] = max(err, perr)
+    tol = model.solver.tolerance
+    out = {"vcycle_max_err": max(errs.values())}
+    # step 1 of the float64 CPU runs: mg's, and phase 6's unpreconditioned
+    mg64, _ = Simulation(model, torch.float64, device="cpu",
+                         precond="mg").run(num_steps=1)
+    runs = (("mg f32", torch.float32, {"precond": "mg"}, {"precond": "mg"},
+             mg64.A),
+            ("mg f64", torch.float64, {"precond": "mg"}, {"precond": "mg"},
+             mg64.A),
+            ("use_shard_map=False", torch.float32, {"use_shard_map": False},
+             None, ref64[0][0]))
+    with _mesh_of_one():
+        mesh = make_mesh(1)
+        for label, dtype, kw, one_kw, a64 in runs:
+            sim = Simulation(model, dtype, mesh=mesh, **kw)
+            ref = (Simulation(model, dtype, device=dev, **one_kw)
+                   if one_kw is not None else
+                   Simulation(model, dtype, mesh=mesh, use_coded=False))
+            if sim.shard_op.use_coded or ref.shard_op is not None and \
+                    ref.shard_op.use_coded:
+                raise AssertionError(f"{label}: the mesh took the coded tier")
+            s1, _ = sim.run(num_steps=1)
+            ref.run(num_steps=1)
+            gap1 = ((s1.A.cpu().double() - a64).abs().max().item()
+                    / (tol * a64.abs().max().item()))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                (st, d), counts = counted(lambda: sim.run(num_steps=5))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sr, dr = ref.run(num_steps=5)
+            st2, d2 = sim.run(num_steps=5)
+            ms = [x["wall_s"] / x["total_iterations"] * 1e3
+                  for x in (d, dr, d2)]
+            equal = (torch.equal(st.A, sr.A)
+                     and torch.equal(st.carry, sr.carry))
+            gap = ((st.A - sr.A).abs().max().item()
+                   / sr.A.abs().max().item())
+            per_it = counts["field_a"] / d["total_iterations"]
+            say(f"[20] mesh of 1 rank over NCCL, team7 x 5 steps, {label}: "
+                f"iterations {d['iterations']} (unsharded"
+                f"{'' if one_kw is not None else ' field mesh'} "
+                f"{dr['iterations']}), A and carry bit for bit: {equal}, "
+                f"max |dA| / scale {gap:.2e}; step 1 {gap1:.3f} tol scale "
+                f"from the f64 CPU {'mg ' if one_kw else ''}run; captures "
+                f"{sim.captures}; no sync "
+                f"flagged; ms/iteration at world size 1: mesh {ms[0]:.3f}, "
+                f"{ms[2]:.3f}, unsharded {ms[1]:.3f}; launches {counts} "
+                f"({per_it:.2f} field_a a solver iteration)")
+            ok = (sim.captures == 1 and not d["unconverged_steps"]
+                  and d["iterations"] == dr["iterations"]
+                  and counts["coded_matvec"] == 0)
+            if dtype == torch.float64:
+                ok = ok and gap <= F64_GAP and counts["field_a"] == 0
+            else:
+                ok = ok and equal and gap1 <= 4.0
+            if label == "mg f32":
+                vc = _vcycle_launches(sim._mg)
+                ok = ok and counts["field_a"] >= (2 + 2 * vc) * d[
+                    "total_iterations"]
+                out.update(launches=counts["field_a"], per_iteration=per_it,
+                           per_vcycle=vc, ms_per_iteration=ms[0],
+                           one_device_ms_per_iteration=ms[1],
+                           iterations=d["iterations"])
+            if not ok:
+                raise AssertionError(f"the {label} mesh of one rank failed "
+                                     "its checks")
+    return out
+
+
 def phase_device_times(recs, dev):
     """Device µs per call (torch.profiler, 20 calls) of the kernels other
     than bsr_spmm at the shapes their JSON records use (team7 for the field
@@ -2861,6 +3036,7 @@ def main() -> int:
     slab_err = phase_slab_coded(recs, dev)
     mesh_rec = phase_mesh_nccl(model, dev, f64_ref)
     phase_cli_mesh(dev)
+    mesh_mg = phase_mesh_mg(recs, model, dev, f64_ref)
 
     # bytes each function must move (inputs read once, outputs written
     # once) and its FP32 operations, at the shapes of its record
@@ -2924,12 +3100,16 @@ def main() -> int:
                                  for r in split_recs.values())
         kernels.append(record(name, split_counts[name], rec, "apply_dots",
                               library_ms=csr256_ms))
+    # field_a also carries phase 20's mg on a mesh of one rank: its
+    # launches over the 5-step run, a solver iteration and a V-cycle, and
+    # the in-process V-cycle's largest error against one device's
     for name in ("field_a", "field_u"):
         rec = dict(field_recs[("team7", "f32")][name])
         rec["max_abs_err"] = max(r[name]["max_abs_err"]
                                  for r in field_recs.values() if name in r)
+        extra = {"mesh_mg": mesh_mg} if name == "field_a" else {}
         kernels.append(record(name, field_counts[name], rec,
-                              library_ms=bsr_recs["csr_ms"]))
+                              library_ms=bsr_recs["csr_ms"], **extra))
     kernels.append(record("bsr_spmm", bsr_launches, bsr_recs[1],
                           library_ms=bsr_recs[1]["library_ms"],
                           kernel_route="vec"))

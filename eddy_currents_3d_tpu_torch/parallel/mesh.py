@@ -12,9 +12,11 @@ rank needs to know of that layout: the mesh's extents, its own block, its
 device, and the ranks of the blocks beside it along z and along y, with
 which it exchanges ghost planes and rows (``parallel/shard_op.py``).
 
-The GSPMD tier the JAX package builds on ``shard_system``/``shard_state``
-is not ported (ROADMAP Queue 1).  The caller starts the processes and the
-group: one process per card (``torchrun --nproc-per-node n_z*n_y``,
+The JAX package's GSPMD tier (``shard_system``/``shard_state``, its
+fallback for ``precond="mg"`` and ``use_shard_map=False``) runs here on
+the same blocks: the per-block field tier, with the V-cycle's levels on the
+rank's block (``parallel/shard_mg.py``).  The caller starts the processes
+and the group: one process per card (``torchrun --nproc-per-node n_z*n_y``,
 ``torch.cuda.set_device`` to the local rank), ``init_process_group`` with
 the backend of the device.
 """

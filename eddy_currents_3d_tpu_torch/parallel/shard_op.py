@@ -34,6 +34,10 @@ One apply is
 3. wait for the ghosts and fold them into the block's faces
    (:meth:`fold`).
 
+The A stencil's part of steps 1 and 3 is :func:`a_face` and :func:`fold_a`,
+which the multigrid V-cycle's levels on the blocks share
+(:func:`ghost_apply`, ``parallel/shard_mg.py``).
+
 The kernels guard a neighbour beyond the block (or beyond the box, for
 ``field_u``) as zero and never clamp (``csrc/field_stencil.cu``,
 ``csrc/coded_matvec.cu``), so on the field tier step 3 is the pure ghost
@@ -82,7 +86,9 @@ from ..ops.field import (FieldStencilOperator, _upcast, field_a_reference,
 from ..ops.field_cuda import field_a, field_u
 from .mesh import Mesh
 
-__all__ = ["ShardedStencilOperator", "in_process_blocks", "handover_apply"]
+__all__ = ["ShardedStencilOperator", "in_process_blocks", "handover_apply",
+           "exchange", "a_face", "fold_a", "ghost_apply",
+           "all_gather_blocks", "cut_block", "join_blocks"]
 
 # z below, z above, y below, y above: the side a neighbour's ghost comes
 # from, and the side that neighbour sends it on
@@ -94,6 +100,103 @@ def _f32(v: float) -> float:
     """A host float64 value rounded once to float32 (JAX's per-plane
     scalars are float32 arrays)."""
     return float(np.float32(v))
+
+
+def exchange(mesh: Mesh, make):
+    """Start an exchange with the neighbour blocks of this rank's block of
+    ``mesh``: to the one on each side the block has, send ``make(side)``
+    (None: nothing on that side, which the neighbour knows too) and receive
+    a tensor of its shape.  Returns (requests, {side: receive buffer})."""
+    ops, recv = [], {}
+    for side in _SIDES:
+        peer = getattr(mesh, side)
+        if peer is None:
+            continue
+        send = make(side)
+        if send is None:
+            continue
+        recv[side] = torch.empty_like(send)
+        ops.append(dist.P2POp(dist.isend, send, peer, mesh.group))
+        ops.append(dist.P2POp(dist.irecv, recv[side], peer, mesh.group))
+    return (dist.batch_isend_irecv(ops) if ops else []), recv
+
+
+def all_gather_blocks(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's block ``t`` of ``mesh``, stacked in rank order (one
+    all-gather), on every rank."""
+    out = t.new_empty((mesh.size,) + tuple(t.shape))
+    dist.all_gather(list(out.unbind(0)), t.contiguous(), group=mesh.group)
+    return out
+
+
+def cut_block(t: torch.Tensor, start, extent) -> torch.Tensor:
+    """The block of a global (..., Z, Y, X) tensor at ``start`` (z, y) of
+    ``extent`` (bz, by) planes and rows, zero past the tensor's end."""
+    (z0, y0), (bz, by) = start, extent
+    out = t.new_zeros(t.shape[:-3] + (bz, by) + t.shape[-1:])
+    src = t[..., z0:z0 + bz, y0:y0 + by, :]
+    out[..., :src.shape[-3], :src.shape[-2], :] = src
+    return out
+
+
+def join_blocks(parts: torch.Tensor, n_z: int, n_y: int,
+                shape_zyx) -> torch.Tensor:
+    """The global (..., Z, Y, X) view of every block of an ``n_z x n_y``
+    mesh, ``parts`` (n_z * n_y, ..., Bz, By, X) stacked in rank order: the
+    blocks laid side by side, cropped to ``shape_zyx`` (the padding at the
+    global end dropped)."""
+    lead = tuple(parts.shape[1:-3])
+    Bz, By, X = parts.shape[-3:]
+    k = len(lead)
+    t = parts.reshape((n_z, n_y) + lead + (Bz, By, X))
+    t = t.permute(*range(2, 2 + k), 0, 2 + k, 1, 3 + k, 4 + k)
+    t = t.reshape(lead + (n_z * Bz, n_y * By, X))
+    return t[..., :shape_zyx[0], :shape_zyx[1], :shape_zyx[2]]
+
+
+def a_face(A: torch.Tensor, side: str) -> torch.Tensor:
+    """The A ghost this block sends to its neighbour on ``side``, flattened
+    into one contiguous tensor: the plane (z) or row (y) of every leading
+    field of ``A`` (..., Z, Y, X) nearest that neighbour."""
+    dim = -3 if side in ("lo", "hi") else -2
+    i = 0 if side in ("lo", "ylo") else A.shape[dim] - 1
+    return A.select(dim, i).reshape(-1)
+
+
+def fold_a(yA: torch.Tensor, ka: torch.Tensor, side: str,
+           a: torch.Tensor) -> torch.Tensor:
+    """Add into ``yA`` (..., Z, Y, X), in place, the 7-point stencil ``ka``'s
+    term across the face on ``side``: the coefficient toward that neighbour
+    on the face times ``a``, the neighbour's :func:`a_face` (pure adds of
+    coefficient times ghost, JAX :574-578, :634-649).  Returns ``a`` viewed
+    as the face."""
+    z = side in ("lo", "hi")
+    lo = side in ("lo", "ylo")
+    dim = -3 if z else -2
+    i = 0 if lo else yA.shape[dim] - 1
+    o = (5 if lo else 6) if z else (3 if lo else 4)
+    face = yA.select(dim, i)
+    a = a.view(face.shape)
+    face += _upcast(ka[o].select(dim, i)) * _upcast(a)
+    return a
+
+
+def ghost_apply(ka: torch.Tensor, x: torch.Tensor, local,
+                post) -> torch.Tensor:
+    """The 7-point stencils ``ka`` (nb, 7, Z, Y, X) of ``nb`` blocks of a
+    mesh applied to ``x`` (nb, ..., Z, Y, X) across it: the exchange of the
+    A ghosts (:func:`a_face`) started by ``post(x)``, ``local(ka, x)`` on
+    each block alone (every neighbour beyond it read as zero), then the
+    ghosts folded in (:func:`fold_a`).  ``post(x)`` returns a function that
+    waits for the ghosts and gives each block's {side: ghost}: one block
+    over :func:`exchange` on a rank, every block handed over in one process
+    (``parallel/shard_mg.py``, whose V-cycle levels apply through this)."""
+    wait = post(x)
+    ys = [local(k, xi) for k, xi in zip(ka, x)]
+    for k, y, ghosts in zip(ka, ys, wait()):
+        for side, a in ghosts.items():
+            fold_a(y, k, side, a)
+    return ys[0][None] if len(ys) == 1 else torch.stack(ys)
 
 
 class ShardedStencilOperator:
@@ -274,13 +377,7 @@ class ShardedStencilOperator:
         """This rank's ``NZl`` padded planes and the padded rows ``[y0, y0 +
         rows)`` of a global (..., nz, ny, X) tensor, in its own dtype, on
         the mesh's device (zero past the grid)."""
-        nz, ny, _ = self.shape_zyx
-        zh, yh = min(self.z0 + self.NZl, nz), min(y0 + rows, ny)
-        out = torch.zeros(t.shape[:-3] + (self.NZl, rows) + t.shape[-1:],
-                          dtype=t.dtype, device=self.device)
-        if zh > self.z0 and yh > y0:
-            out[..., :zh - self.z0, :yh - y0, :] = t[..., self.z0:zh, y0:yh, :]
-        return out
+        return cut_block(t, (self.z0, y0), (self.NZl, rows)).to(self.device)
 
     def shard(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's padded block of a global (..., nz, ny, nx) tensor, in
@@ -300,18 +397,14 @@ class ShardedStencilOperator:
     def _join(self, parts):
         """The global tensor of every rank's block, ``parts`` in rank
         order."""
-        n_y = self.n_y
-        rows = [torch.cat(parts[iz * n_y:(iz + 1) * n_y], dim=-2)
-                for iz in range(self.n_z)]
-        nz, ny, _ = self.shape_zyx
-        return torch.cat(rows, dim=-3)[..., :nz, :ny, :].contiguous()
+        return join_blocks(torch.stack(parts), self.n_z, self.n_y,
+                           self.shape_zyx).contiguous()
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """The global (..., nz, ny, nx) tensor of every rank's block ``t``:
         one all-gather, on every rank."""
-        parts = [torch.empty_like(t) for _ in range(self.mesh.size)]
-        dist.all_gather(parts, t.contiguous(), group=self.mesh.group)
-        return self._join(parts)
+        return join_blocks(all_gather_blocks(self.mesh, t), self.n_z,
+                           self.n_y, self.shape_zyx).contiguous()
 
     def gather_first(self, t: torch.Tensor):
         """The global tensor of every rank's block ``t`` on the mesh's
@@ -344,38 +437,17 @@ class ShardedStencilOperator:
         # the k planes (rows) of t along dim nearest that neighbour
         face = lambda t, dim, k: t.narrow(dim, 0 if lo else t.shape[dim] - k,
                                           k)
+        parts = [a_face(x.A, side)]
         if side in ("lo", "hi"):
-            parts = [face(x.A, 1, 1).reshape(-1)]
             if self.use_coded:
                 parts.append(face(x.U, 0, 2).reshape(-1))
             elif self.box is not None:
                 ly0, ly1, x0, x1 = self.box
                 parts.append(face(x.U, 0, 2)[:, ly0:ly1, x0:x1].reshape(-1))
-        else:
-            parts = [face(x.A, 2, 1).reshape(-1)]
-            if self.gbox is not None:
-                _, _, x0, x1 = self.gbox
-                parts.append(face(x.U, 1, 2)[..., x0:x1].reshape(-1))
+        elif self.gbox is not None:
+            _, _, x0, x1 = self.gbox
+            parts.append(face(x.U, 1, 2)[..., x0:x1].reshape(-1))
         return torch.cat(parts)
-
-    def _exchange(self, make):
-        """Start an exchange with the neighbour blocks: to the one on each
-        side this block has, send ``make(side)`` (None: nothing on that
-        side, which the neighbour knows too) and receive a tensor of its
-        shape.  Returns (requests, {side: receive buffer})."""
-        m = self.mesh
-        ops, recv = [], {}
-        for side in _SIDES:
-            peer = getattr(m, side)
-            if peer is None:
-                continue
-            send = make(side)
-            if send is None:
-                continue
-            recv[side] = torch.empty_like(send)
-            ops.append(dist.P2POp(dist.isend, send, peer, m.group))
-            ops.append(dist.P2POp(dist.irecv, recv[side], peer, m.group))
-        return (dist.batch_isend_irecv(ops) if ops else []), recv
 
     # -- the operator ------------------------------------------------------
     def local_apply(self, x: State):
@@ -420,12 +492,9 @@ class ShardedStencilOperator:
             if side in ("lo", "hi"):
                 self._fold_z(yA, yU, side, buf)
                 continue
-            # the A stencil's y neighbour across the face (pure adds of
-            # coefficient times ghost row, JAX :574-578)
+            # the A stencil's y neighbour across the face (JAX :574-578)
             nA = 3 * NZl * nx
-            a = buf[:nA].view(3, NZl, nx)
-            r, o = (0, 3) if side == "ylo" else (-1, 4)
-            yA[:, :, r] += f(op.ka[o, :, r]) * f(a)
+            a = fold_a(yA, op.ka, side, buf[:nA])
             if self.box is None:
                 continue
             ly0, ly1, x0, x1 = self.box
@@ -457,11 +526,9 @@ class ShardedStencilOperator:
         """The field tier's z ghosts: pure adds of coefficient times ghost
         plane (JAX :634-649, :692-696)."""
         op, f = self.local, _upcast
-        nA = yA[:, 0].numel()
-        a = buf[:nA].view(yA.shape[0], *yA.shape[2:])
         # the A stencil's z neighbour across the face
-        p, o = (0, 5) if side == "lo" else (-1, 6)
-        yA[:, p] += f(op.ka[o, p]) * f(a)
+        nA = yA[:, 0].numel()
+        a = fold_a(yA, op.ka, side, buf[:nA])
         if self.box is None:
             return
         ly0, ly1, x0, x1 = self.box
@@ -513,7 +580,8 @@ class ShardedStencilOperator:
     def apply(self, x: State) -> State:
         """y = A @ x on this rank's block: the ghost exchange posted, the
         local kernels, then the ghosts folded in."""
-        reqs, recv = self._exchange(lambda side: self.message(x, side))
+        reqs, recv = exchange(self.mesh,
+                              lambda side: self.message(x, side))
         yA, yU = self.local_apply(x)
         for r in reqs:
             r.wait()
@@ -527,7 +595,8 @@ class ShardedStencilOperator:
         :527-536), in the state's arithmetic as the single-device
         operator's ``apply_div``: the exchange of A's ghosts posted, the
         local contraction, then the ghosts folded in, as :meth:`apply`."""
-        reqs, recv = self._exchange(lambda side: self.div_message(A, side))
+        reqs, recv = exchange(self.mesh,
+                              lambda side: self.div_message(A, side))
         yU = self.local_div(A)
         for r in reqs:
             r.wait()

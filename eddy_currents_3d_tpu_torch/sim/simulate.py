@@ -35,10 +35,14 @@ On a mesh (``parallel/mesh.py`` ``make_mesh``: one process per card over
 ``torch.distributed``, (z, y) blocks) the operator is the sharded tier
 (``parallel/shard_op.py``): per slab the coded kernel on z-only meshes
 where the coded operator applies, as in the JAX package, and per block the
-field kernels otherwise.  Every field is the rank's block, the dots are
-all-reduced inside the solve, ``run``/``run_scan`` return the global
-fields, and checkpoints hold the global fields (the first rank gathers and
-writes them; every rank resumes by cutting its block from the file).
+field kernels otherwise: for ``precond="mg"``, whose V-cycle then runs on
+the rank's block (``parallel/shard_mg.py``: distributed levels with
+``field_a`` and ghost exchanges, the coarse ones gathered and replicated),
+and for ``use_shard_map=False``, the JAX package's GSPMD tier.  Every
+field is the rank's block, the dots are all-reduced inside the solve,
+``run``/``run_scan`` return the global fields, and checkpoints hold the
+global fields (the first rank gathers and writes them; every rank resumes
+by cutting its block from the file).
 The solve is BiCGSTABwr, unpreconditioned or right-preconditioned with
 Jacobi, Chebyshev, Chebyshev on Jacobi, the multigrid V-cycle or ILU(0),
 as in the JAX package, its reductions in ``dot_dtype`` (None: the state's
@@ -85,6 +89,7 @@ from ..io import native, vtk
 from ..models.model import Model
 from ..ops.coded import CodedUnsupported, from_assembled_coded
 from ..ops.field import FieldStencilOperator
+from ..parallel.shard_mg import build_shard_mg
 from ..parallel.shard_op import ShardedStencilOperator
 from ..solvers.bicgstab import DeviceLoop
 from ..solvers.chebyshev import chebyshev_preconditioner
@@ -267,8 +272,11 @@ class Simulation:
     ``use_pallas`` is the JAX package's keyword for the hand-written
     kernels (None: on at float32 and bfloat16, off at float64): off, the
     operator is the flat-roll tier of torch shifts, on any device.
-    ``use_shard_map`` (None: on unless ``precond="mg"``) must be on with a
-    mesh: the JAX package's GSPMD tier is not ported."""
+    ``use_shard_map`` (None: on unless ``precond="mg"``) is the JAX
+    package's choice between its explicit mesh tier and its GSPMD tier: off,
+    the operator is the per-block field tier, never coded, and ``"mg"``
+    (which needs it off) runs the V-cycle on the rank's block
+    (``parallel/shard_mg.py``)."""
 
     def __init__(
         self,
@@ -324,15 +332,16 @@ class Simulation:
                              "float64")
         self.use_pallas = bool(use_pallas)
         if mesh is not None:
+            # JAX simulate.py:249-250: the explicit tier unless "mg", whose
+            # V-cycle takes the GSPMD tier; here both run on the rank's
+            # block, "mg" and use_shard_map=False on the field tier
             if use_shard_map is None:
                 use_shard_map = precond != "mg"
-            if not use_shard_map:
-                why = ("precond='mg'" if precond == "mg"
-                       else "use_shard_map=False")
+            if precond == "mg" and use_shard_map:
                 raise ValueError(
-                    f"{why} on a mesh takes the JAX package's GSPMD tier, "
-                    "which is not ported; the port's mesh runs the "
-                    "per-shard field kernels (use_shard_map=True, no 'mg')")
+                    "precond='mg' with use_shard_map=True: the explicit "
+                    "tier's padded solver space cannot host the JAX "
+                    "package's V-cycle; leave use_shard_map None or False")
             if precond == "ilu0":
                 raise ValueError("precond='ilu0' is single-device only")
         self.mesh = mesh
@@ -366,13 +375,15 @@ class Simulation:
         # use_pallas=False).  use_coded=None routes CodedUnsupported to
         # the field tier; an explicit use_coded=True never degrades.
         n_y = mesh.n_y if mesh is not None else 1
+        gspmd = mesh is not None and not use_shard_map
         coded_ok = (self.use_pallas and dtype == torch.float32
                     and coeff_dtype is None and precond != "mg"
-                    and n_y == 1)
+                    and not gspmd and n_y == 1)
         if use_coded and not coded_ok:
             why = ("use_pallas=False" if no_pallas
                    else f"coeff_dtype={coeff_dtype}" if coeff_dtype is not None
                    else "precond='mg'" if precond == "mg"
+                   else "use_shard_map=False" if gspmd
                    else "mesh has a y decomposition" if n_y != 1
                    else f"dtype={dtype}")
             raise ValueError(
@@ -462,9 +473,16 @@ class Simulation:
                 z0, z1, y0, y1, x0, x1 = op.box
                 ku0[z0:z1, y0:y1, x0:x1] = op.ku[0].to(
                     "cpu", torch.float64).numpy()
-            self._mg = build_mg(op.ka, ku0=ku0, dtype=dtype,
-                                device=self.device,
-                                kernels=self.use_pallas)
+            if mesh is None:
+                self._mg = build_mg(op.ka, ku0=ku0, dtype=dtype,
+                                    device=self.device,
+                                    kernels=self.use_pallas)
+            else:
+                # the same hierarchy, its levels on the rank's block
+                # (parallel/shard_mg.py)
+                self._mg = build_shard_mg(op.ka, self.shard_op, ku0=ku0,
+                                          dtype=dtype,
+                                          kernels=self.use_pallas)
         if precond == "ilu0":
             # right-ILU(0) in stencil form: host factorization on the CSR
             # export, factors in the state dtype (under coeff_dtype too, as

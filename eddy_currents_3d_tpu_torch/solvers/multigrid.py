@@ -35,9 +35,18 @@ from ..ops.field import field_a_reference
 from ..utils.device import resolve_device
 
 __all__ = ["build_mg", "MGLevel", "MGPreconditioner", "MgUnsupported",
-           "MG_CELL_LIMIT", "galerkin_coarsen", "stencil7_apply"]
+           "MG_CELL_LIMIT", "galerkin_coarsen", "hierarchy", "inv_diagonal",
+           "stencil7_apply"]
 
 _W = 2.0 / 3.0          # damped-Jacobi weight
+
+# The V-cycle's settings, the JAX package's build_mg defaults: the
+# coarsening stops below MIN_DIM cells along an axis or at MAX_LEVELS
+# levels; PRE and POST smoothing sweeps a level, COARSE_SWEEPS on the
+# coarsest.  build_mg and the mesh V-cycle (parallel/shard_mg.py) read them
+# here, so the two V-cycles stay one.
+MIN_DIM, MAX_LEVELS = 4, 10
+PRE, POST, COARSE_SWEEPS = 1, 1, 12
 
 # The JAX package rejects larger models because XLA's compilation of the
 # V-cycle crashed the TPU compile worker at the 256^3-class size (1.05M
@@ -158,32 +167,43 @@ class MGPreconditioner:
 
     levels: tuple          # tuple[MGLevel, ...], fine -> coarse
     inv_du: torch.Tensor   # full-grid 1/diag for the U rows (1 off-conductor)
-    pre: int = 1
-    post: int = 1
-    coarse_sweeps: int = 12
+    pre: int = PRE
+    post: int = POST
+    coarse_sweeps: int = COARSE_SWEEPS
     kernels: bool = True   # stencil7_apply's: field_a on the card
 
     # -- scalar-field V-cycle ------------------------------------------
-    def _smooth(self, lvl: MGLevel, b, x, sweeps):
+    def _apply(self, li: int, x):
+        """Level ``li``'s stencil applied to ``x``."""
+        return stencil7_apply(self.levels[li].ka, x, self.kernels)
+
+    def _smooth(self, li: int, b, x, sweeps):
+        inv_d = self.levels[li].inv_d
         for _ in range(sweeps):
-            x = x + _W * lvl.inv_d * (b - stencil7_apply(lvl.ka, x,
-                                                          self.kernels))
+            x = x + _W * inv_d * (b - self._apply(li, x))
         return x
 
+    @property
+    def _coarsest(self) -> int:
+        return len(self.levels) - 1
+
     def _vcycle(self, li: int, b):
+        x = _W * self.levels[li].inv_d * b   # first smoother sweep from x = 0
+        if li == self._coarsest:
+            return self._smooth(li, b, x, self.coarse_sweeps - 1)
+        x = self._smooth(li, b, x, self.pre - 1)
+        r = b - self._apply(li, x)
+        x = x + self.correction(li, r)
+        return self._smooth(li, b, x, self.post)
+
+    def correction(self, li: int, r):
+        """The coarse-grid correction of level ``li``'s residual ``r``: pad
+        to even, restrict, the V-cycle of level ``li + 1``, prolong, crop."""
         lvl = self.levels[li]
-        x = _W * lvl.inv_d * b            # first smoother sweep from x = 0
-        if li == len(self.levels) - 1:
-            return self._smooth(lvl, b, x, self.coarse_sweeps - 1)
-        x = self._smooth(lvl, b, x, self.pre - 1)
-        r = b - stencil7_apply(lvl.ka, x, self.kernels)
-        # pad to even, restrict, recurse, prolong, crop
         pz, py, px = (p - s for p, s in zip(lvl.pshape, lvl.shape))
         rp = F.pad(r, (0, px, 0, py, 0, pz))
         ec = self._vcycle(li + 1, _restrict(rp))
-        ep = _prolong(ec)[..., :lvl.shape[0], :lvl.shape[1], :lvl.shape[2]]
-        x = x + ep
-        return self._smooth(lvl, b, x, self.post)
+        return _prolong(ec)[..., :lvl.shape[0], :lvl.shape[1], :lvl.shape[2]]
 
     def apply_scalar(self, r: torch.Tensor) -> torch.Tensor:
         """M^-1 r for scalar fields on the fine grid (batched over leading
@@ -201,8 +221,35 @@ def _host64(a) -> np.ndarray:
     return np.asarray(a, np.float64)
 
 
-def build_mg(ka, ku0=None, min_dim: int = 4, max_levels: int = 10,
-             pre: int = 1, post: int = 1, coarse_sweeps: int = 12,
+def inv_diagonal(d: np.ndarray) -> np.ndarray:
+    """1 / d, and 1 where d is 0 (a decoupled row)."""
+    return np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 1.0)
+
+
+def hierarchy(ka, min_dim: int = MIN_DIM,
+              max_levels: int = MAX_LEVELS) -> list:
+    """The V-cycle's levels' coefficients, fine to coarse, as host float64
+    arrays (7, nz, ny, nx): ``ka`` (a tensor or a numpy array) and its
+    Galerkin coarsenings, until a level's smallest extent is below
+    ``min_dim`` or there are ``max_levels``.  Raises
+    :class:`MgUnsupported` above MG_CELL_LIMIT cells."""
+    n_cells = int(np.prod(tuple(ka.shape)[1:]))
+    if n_cells > MG_CELL_LIMIT:
+        raise MgUnsupported(
+            f"precond='mg' supports up to {MG_CELL_LIMIT:,} cells (model has "
+            f"{n_cells:,}), the JAX package's limit: XLA compilation of its "
+            "V-cycle at the 256³-class size crashes the TPU compile worker.  "
+            "Use precond='jacobi'/'cheb_jacobi' or the unpreconditioned "
+            "coded path at scale.")
+    out = [_host64(ka)]
+    while len(out) < max_levels and min(out[-1].shape[1:]) >= min_dim:
+        out.append(galerkin_coarsen(out[-1]))
+    return out
+
+
+def build_mg(ka, ku0=None, min_dim: int = MIN_DIM,
+             max_levels: int = MAX_LEVELS, pre: int = PRE, post: int = POST,
+             coarse_sweeps: int = COARSE_SWEEPS,
              dtype: torch.dtype = None, device=None,
              kernels: bool = True) -> MGPreconditioner:
     """Build the V-cycle hierarchy from fine A coefficients ``ka``
@@ -212,14 +259,7 @@ def build_mg(ka, ku0=None, min_dim: int = 4, max_levels: int = 10,
     tensor, else the CUDA device, which must exist); ``kernels=False``
     applies them with torch ops on the card too (float64 needs it there).
     Raises :class:`MgUnsupported` above MG_CELL_LIMIT cells."""
-    n_cells = int(np.prod(tuple(ka.shape)[1:]))
-    if n_cells > MG_CELL_LIMIT:
-        raise MgUnsupported(
-            f"precond='mg' supports up to {MG_CELL_LIMIT:,} cells (model has "
-            f"{n_cells:,}), the JAX package's limit: XLA compilation of its "
-            "V-cycle at the 256³-class size crashes the TPU compile worker.  "
-            "Use precond='jacobi'/'cheb_jacobi' or the unpreconditioned "
-            "coded path at scale.")
+    host = hierarchy(ka, min_dim, max_levels)
     if isinstance(ka, torch.Tensor):
         dtype = dtype or ka.dtype
         device = device if device is not None else ka.device
@@ -227,25 +267,14 @@ def build_mg(ka, ku0=None, min_dim: int = 4, max_levels: int = 10,
     dtype = dtype or torch.float64
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
-    levels = []
-    cur = _host64(ka)
-    for _ in range(max_levels):
-        shape = tuple(cur.shape[1:])
-        pshape = tuple(s + (s % 2) for s in shape)
-        d = cur[0]
-        inv_d = np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 1.0)
-        levels.append(MGLevel(ka=dev(cur), inv_d=dev(inv_d), shape=shape,
-                              pshape=pshape))
-        if min(shape) < min_dim:
-            break
-        cur = galerkin_coarsen(cur)
-
+    levels = [MGLevel(ka=dev(cur), inv_d=dev(inv_diagonal(cur[0])),
+                      shape=tuple(cur.shape[1:]),
+                      pshape=tuple(s + s % 2 for s in cur.shape[1:]))
+              for cur in host]
     if ku0 is None:
         inv_du = torch.ones(levels[0].shape, dtype=dtype, device=device)
     else:
-        ku0 = _host64(ku0)
-        inv_du = dev(np.where(ku0 != 0, 1.0 / np.where(ku0 == 0, 1.0, ku0),
-                              1.0))
+        inv_du = dev(inv_diagonal(_host64(ku0)))
     return MGPreconditioner(levels=tuple(levels), inv_du=inv_du, pre=pre,
                             post=post, coarse_sweeps=coarse_sweeps,
                             kernels=kernels)

@@ -11,10 +11,13 @@ Each rank takes the card of its local rank, joins the NCCL group that
 torchrun's environment describes (gloo on the CPU with ``--cpu``) and runs
 ``case_static`` (102x102x24 by default) on ``make_mesh(N)``, its z slab of
 the grid, at float32 on the coded tier (the default there) and on the field
-tier (``use_coded=False``), and at float64 with float64 dots; then, where N
-is even, on ``make_mesh(N / 2, 2)``, its (z, y) block, at float32 (the
-field tier) and float64.  Each Simulation is graphed: a first step captures
-the solve, then ``--steps`` steps are timed.  Every rank then runs the same
+tier (``use_coded=False``), and at float64 with float64 dots; with
+``precond="mg"`` (the V-cycle on the rank's block, ``parallel/shard_mg.py``)
+at float64 and float32, and ``use_shard_map=False`` (the JAX package's
+GSPMD tier: the field tier) at float64; then, where N is even, on
+``make_mesh(N / 2, 2)``, its (z, y) block, at float32 (the field tier) and
+float64, and with ``precond="mg"`` at both.  Each Simulation is graphed:
+a first step captures the solve, then ``--steps`` steps are timed.  Every rank then runs the same
 model on its own card alone (the same tier at float32: the unsharded coded
 operator or field tier; the flat-roll operator at float64), solves step 1
 at float64 to 1e-8 (right-Jacobi: the converged solution) and checks:
@@ -39,6 +42,12 @@ at float64 to 1e-8 (right-Jacobi: the converged solution) and checks:
 * one capture per Simulation, and the dots' all-reduce called while the
   solve is captured and never after (it runs inside the graph).
 
+For the float32 ``mg`` runs on several ranks rank 0 also prints where an
+iteration's time goes (``_breakdown``): the V-cycle, the same V-cycle
+without its communication, its replicated levels and the operator's apply,
+each graphed alone and timed, and the V-cycle's device time by kernel
+class (NCCL's, ``field_a``, the rest) from torch.profiler.
+
 Rank 0 prints the device, each run's iterations and ms/iteration at this
 world size, and, last, one JSON line with ``"ok"``.  A failed check raises,
 and torchrun stops the other ranks.
@@ -46,8 +55,9 @@ and torchrun stops the other ranks.
 ``--cli N`` (not under torchrun) runs the CLI as users start it on a mesh:
 ``python -m torch.distributed.run --standalone --nproc-per-node N -m
 eddy_currents_3d_tpu_torch in.vxc --mesh N`` and ``--mesh N/2,2``, on the
-static case (``--shape``, 3 steps, an output every step) at float64 against
-the CLI on one card (every printed line the same but the backend line and
+static case (``--shape``, 3 steps, an output every step) at float64, and
+``--mesh N --precond mg`` at float64, against the CLI on one card (with
+the same ``--precond``) (every printed line the same but the backend line and
 the wall times; the field files, which hold float32, within 1e-9 of each
 field's scale beyond one float32 rounding of the one card's value: two
 float64 answers 1e-10 apart can round to neighbouring float32 values; the
@@ -104,6 +114,105 @@ def _run(sim, steps, note):
     return st, diag, wall, n_cap, len(calls) - n0
 
 
+def _trace(fn):
+    """{kernel: device µs} of torch.profiler over one call of ``fn`` ended
+    by a synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            out[e.key] = t if t is not None else e.self_cuda_time_total
+    return out
+
+
+class _NoLinks:
+    """A V-cycle's links with the communication taken out, for timing the
+    rest: no ghosts, and the gather this rank's block in every place."""
+
+    def __init__(self, size):
+        self.size = size
+
+    def ghosts(self, x):
+        return lambda: [{}]
+
+    def gather(self, r):
+        return r.expand((self.size,) + tuple(r.shape[1:]))
+
+
+def _breakdown(sim, dev, rank):
+    """Where a float32 mg iteration's time goes on the mesh: the V-cycle
+    (``sim._mg.apply``; two an iteration), the same V-cycle with its
+    communication taken out (:class:`_NoLinks`: no ghost exchange, no
+    gather), its replicated levels alone (the correction from the gather
+    level on, which every rank computes whole) and the operator's apply
+    (two an iteration), each on the rank's block of step 1's right-hand
+    side, captured alone as a CUDA graph (``utils/graph.py``) and timed
+    between events over 20 replays (every rank replays, so the exchanges
+    meet; on the CPU called and timed on the host clock); and, on the
+    card, torch.profiler's device time over 10 replays of the V-cycle's
+    graph on rank 0 by kernel: NCCL's, field_a, the rest.  Returns
+    {part: ms} and {kernel class: µs a V-cycle} (empty where the trace
+    holds no device event)."""
+    from eddy_currents_3d_tpu_torch.utils.graph import Graph
+
+    mg, sop = sim._mg, sim.shard_op
+    b, _ = sim.step_system(sim.shard_state(sim.init_state()),
+                           sim.steps[0][0])
+    quiet = dataclasses.replace(mg, links=_NoLinks(mg.meshes[0].size))
+    parts = {"vcycle": lambda: mg.apply(b),
+             "vcycle_no_comm": lambda: quiet.apply(b),
+             "operator_apply": lambda: sop.apply(b)}
+    if mg.rep is not None:
+        gen = torch.Generator().manual_seed(rank)
+        rg = torch.randn((3,) + mg.rep.levels[0].shape, generator=gen).to(
+            dev, b.A.dtype)
+        parts["replicated_levels"] = lambda: mg.rep.correction(0, rg)
+    cuda = dev.type == "cuda"
+    ms, runs = {}, {}
+    for name, fn in parts.items():
+        run = runs[name] = Graph(fn, dev).replay if cuda else fn
+        for _ in range(3):
+            run()
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+        if cuda:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            run()
+        if cuda:
+            e1.record()
+            torch.cuda.synchronize()
+            ms[name] = e0.elapsed_time(e1) / 20
+        else:
+            ms[name] = (time.perf_counter() - t0) * 1e3 / 20
+    kinds = {}
+    if cuda:
+        dist.barrier()
+        replay10 = lambda: [runs["vcycle"]() for _ in range(10)]
+        if rank == 0:
+            for k, us in _trace(replay10).items():
+                kind = ("nccl" if "nccl" in k.lower() else
+                        "field_a" if "field_a" in k else "other")
+                kinds[kind] = kinds.get(kind, 0.0) + us / 10
+        else:
+            replay10()
+        torch.cuda.synchronize()
+    dist.barrier()
+    return ms, kinds
+
+
 def _cli_runs(n, cpu, shape):
     """``--cli``: the CLI on one card and under torchrun on ``n`` ranks as
     ``--mesh n`` and ``--mesh n/2,2``; raises on a failed check."""
@@ -121,6 +230,9 @@ def _cli_runs(n, cpu, shape):
         env["OMP_NUM_THREADS"] = "1"
     dev = ["--device", "cpu"] if cpu else []
     meshes = [str(n)] + ([f"{n // 2},2"] if n % 2 == 0 else [])
+    # (dtype, arguments, meshes): the default tiers, then mg on z slabs
+    cases = [("f64", [], meshes), ("f32", [], meshes),
+             ("f64", ["--precond", "mg"], [str(n)])]
 
     def run(cwd, ranks, args):
         cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -145,16 +257,18 @@ def _cli_runs(n, cpu, shape):
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "in.vxc"), "w") as f:
             f.write(case_static(shape_xyz=shape, steps=3, jump=0.001))
-        for dtype in ("f64", "f32"):
-            ref = os.path.join(tmp, f"one_{dtype}")
+        for dtype, extra, on in cases:
+            tag = "_".join([dtype] + extra[1:])
+            ref = os.path.join(tmp, f"one_{tag}")
             os.makedirs(ref)
-            text1, w1 = run(ref, 0, ["--dtype", dtype])
-            print(f"[cli] one card {dtype}: {pick(text1, 'Tcalc')}, command "
-                  f"{w1:.1f} s", flush=True)
-            for mesh in meshes:
-                cwd = os.path.join(tmp, f"m{mesh}_{dtype}")
+            text1, w1 = run(ref, 0, ["--dtype", dtype] + extra)
+            print(f"[cli] one card {dtype} {extra}: {pick(text1, 'Tcalc')}, "
+                  f"command {w1:.1f} s", flush=True)
+            for mesh in on:
+                cwd = os.path.join(tmp, f"m{mesh}_{tag}")
                 os.makedirs(cwd)
-                text, wall = run(cwd, n, ["--mesh", mesh, "--dtype", dtype])
+                text, wall = run(cwd, n, ["--mesh", mesh, "--dtype", dtype]
+                                 + extra)
                 gap = raw = 0.0
                 names = sorted(os.listdir(os.path.join(ref, "out")))
                 same = sorted(os.listdir(os.path.join(cwd, "out"))) == names
@@ -177,7 +291,7 @@ def _cli_runs(n, cpu, shape):
                                 np.float64)
                             raw = max(raw, d.max() / scale)
                             gap = max(gap, (d - ulp).max() / scale)
-                print(f"[cli] --mesh {mesh} {dtype} under torchrun: "
+                print(f"[cli] --mesh {mesh} {dtype} {extra} under torchrun: "
                       f"{pick(text, 'backend')}; {pick(text, 'Tcalc')}; "
                       f"{[ln for ln in text.splitlines() if 'iterations total' in ln]}"
                       f"; torchrun exited 0 after {wall:.1f} s; files as "
@@ -190,8 +304,9 @@ def _cli_runs(n, cpu, shape):
                         gap > 1e-9 or lines(text) != lines(text1))):
                     raise AssertionError(f"--mesh {mesh} {dtype} differs "
                                          "from one card")
-                out[f"{mesh} {dtype}"] = {"command_s": wall, "gap": raw,
-                                          "beyond_rounding": gap}
+                out[" ".join([mesh, tag])] = {"command_s": wall,
+                                              "gap": raw,
+                                              "beyond_rounding": gap}
     print(json.dumps({"ok": True, "cli": out}), flush=True)
     return 0
 
@@ -255,6 +370,13 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     try:
+        if not args.cpu:
+            # a profiler session before the first capture: graphs captured
+            # before a process's first session never show in a trace
+            x = torch.ones(1 << 16, device="cuda")
+            for _ in range(5):
+                if _trace(lambda: x.mul(2.0)):
+                    break
         mesh = make_mesh(world)
         dev = mesh.device
         if rank == 0 and not args.cpu:
@@ -309,13 +431,19 @@ def main(argv=None) -> int:
             f"{f64_to_conv:.3f} tol scale from it; float32 bound "
             f"{bound:.3f}")
         out = {"f64_to_conv": f64_to_conv}
+        mg = {"precond": "mg"}
         configs = [("f32 coded z", f32, None, mesh, {}),
                    ("f32 field z", f32, None, mesh, {"use_coded": False}),
-                   ("f64 z", f64, f64, mesh, {})]
+                   ("f64 z", f64, f64, mesh, {}),
+                   ("f64 mg z", f64, f64, mesh, mg),
+                   ("f32 mg z", f32, None, mesh, mg),
+                   ("f64 gspmd z", f64, f64, mesh, {"use_shard_map": False})]
         if world % 2 == 0:
             yz = make_mesh(world // 2, 2)
             configs += [("f32 field zy", f32, None, yz, {"use_coded": False}),
-                        ("f64 zy", f64, f64, yz, {})]
+                        ("f64 zy", f64, f64, yz, {}),
+                        ("f64 mg zy", f64, f64, yz, mg),
+                        ("f32 mg zy", f32, None, yz, mg)]
         for label, dtype, dot, on, kw in configs:
             note(f"{label}: mesh run")
             sim = Simulation(model, dtype, dot, mesh=on, **kw)
@@ -344,9 +472,15 @@ def main(argv=None) -> int:
             its = diag["iterations"]
             ms = wall / diag["total_iterations"] * 1e3
             sop = sim.shard_op
+            plan = ""
+            if kw.get("precond") == "mg":
+                plan = (f"; V-cycle levels on the blocks "
+                        f"{[lvl.shape for lvl in sim._mg.levels]}"
+                        + (f", gathered at level {len(sim._mg.levels) - 1}"
+                           if sim._mg.rep is not None else ""))
             say(f"[mesh] {label} {shape} on {sop.n_z}x{sop.n_y} (z, y) "
                 f"blocks of {sop.block_zyx} ({'coded' if coded else 'field'}"
-                f" tier): iterations {its} (one device "
+                f" tier{plan}): iterations {its} (one device "
                 f"{dr['iterations']}); max |dA| / scale after step 1 "
                 f"{gap1:.2e} ({gap1 / tol:.3f} tol scale), after "
                 f"{args.steps} steps {gap:.2e} ({gap / tol:.3f})"
@@ -366,6 +500,21 @@ def main(argv=None) -> int:
                 raise AssertionError(f"f64: iterations {its} against "
                                      f"{dr['iterations']}, gaps {gap1}, "
                                      f"{gap}")
+            if kw.get("precond") == "mg" and dtype == f32 and world > 1:
+                note(f"{label}: breakdown")
+                parts, kinds = _breakdown(sim, dev, rank)
+                dev_us = sum(kinds.values())
+                say(f"[mesh] {label} where an iteration goes, each part "
+                    f"graphed alone (ms): {json.dumps(parts)}; an iteration "
+                    f"holds two V-cycles and two operator applies "
+                    f"({2 * (parts['vcycle'] + parts['operator_apply']):.3f} "
+                    f"ms of its {ms:.3f}); the V-cycle's device time by "
+                    f"kernel on rank 0 (us): "
+                    + (json.dumps(kinds) + f", {dev_us / 1e3:.3f} ms of its "
+                       f"{parts['vcycle']:.3f}" if kinds else
+                       "not traced"))
+                out.setdefault("breakdown", {})[label] = {
+                    "ms": parts, "device_us_per_vcycle": kinds}
             out[label] = {"iterations": its, "ms_per_iteration": ms,
                           "one_device_iterations": dr["iterations"],
                           "gap_step1": gap1, "gap": gap,

@@ -408,5 +408,102 @@ def task_yz8():
     return out
 
 
+def vcycle_input(model, seed):
+    """The random A-shaped fields a V-cycle check applies M^-1 to."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((3,) + tuple(model.shape_zyx))
+
+
+def _mg_vcycles(cases, seed):
+    """The distributed V-cycle at float64 on each (shape, (n_z, n_y)) of
+    ``cases``: its global result, whether it gathers, each level's block
+    extents, the largest |value| of the rank's block output on padding
+    cells, and the replicated levels' correction (the global one at the
+    gather level, None where nothing gathers)."""
+    from eddy_currents_3d_tpu_torch.assembly.assemble import assemble_operator
+    from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
+    from eddy_currents_3d_tpu_torch.parallel.shard_mg import build_shard_mg
+    from eddy_currents_3d_tpu_torch.parallel.shard_op import (
+        ShardedStencilOperator)
+
+    f64 = torch.float64
+    out = {}
+    for shape, dims in cases:
+        model = _model(shape)
+        sysm = assemble_operator(model, f64, "cpu")
+        sop = ShardedStencilOperator(sysm, make_mesh(*dims), f64)
+        mg = build_shard_mg(sysm.op.ka, sop, dtype=f64)
+        seen = []
+        if mg.rep is not None:
+            real = mg.rep.correction
+            object.__setattr__(mg.rep, "correction",
+                               lambda li, r: seen.append(real(li, r))
+                               or seen[-1])
+        r = torch.from_numpy(vcycle_input(model, seed))
+        y = mg.apply_scalar(sop.shard(r)[None])[0]
+        cells = sop.shard(torch.ones(tuple(model.shape_zyx), dtype=f64))
+        out[(tuple(shape), tuple(dims))] = {
+            "y": sop.gather(y).numpy(), "gathers": mg.rep is not None,
+            "blocks": [lvl.shape for lvl in mg.levels],
+            "padding": (y * (1 - cells)).abs().max().item(),
+            "replicated": seen[-1].numpy() if seen else None}
+    return out
+
+
+def task_mg_four(seed):
+    """The 4-rank group of tests/test_torch_shard_mg.py: the distributed
+    V-cycle on (2, 2) UNEVEN_YZ and (4, 1) 16^3; on (2, 2) the float64
+    mg Simulation (STATIC, 3 steps, float64 dots), use_shard_map=False on
+    the moving coil over 5 steps (MOVING), and step 1 of the float32 mg
+    Simulation (STATIC): its global b and solution before the surface
+    zeroing (rank 0; None on the others) and iterations."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
+
+    f64 = torch.float64
+    mesh = make_mesh(2, 2)
+    out = {"vcycle": _mg_vcycles([(UNEVEN_YZ, (2, 2)), ((16, 16, 16), (4, 1))],
+                                 seed)}
+    sim = Simulation(_model(STATIC, 3), f64, f64, mesh=mesh, precond="mg")
+    out["mg_f64"] = _sim_out(*sim.run(), sim)
+    out["mg_f64"]["mg"] = type(sim._mg).__name__
+    sim = Simulation(_model(MOVING, 6, True), f64, f64, mesh=mesh,
+                     use_shard_map=False)
+    st, diag = sim.run(num_steps=5)
+    out["gspmd_moving"] = dict(_sim_out(st, diag, sim),
+                               distance=np.asarray(st.motion.distance),
+                               movestop=np.asarray(st.motion.movestop))
+    sim = Simulation(_model(STATIC, 3), torch.float32, mesh=mesh,
+                     precond="mg")
+    b, x0 = sim.step_system(sim.shard_state(sim.init_state()),
+                            sim.steps[0][0])
+    res = sim.solve(b, x0)
+    b, x = sim.shard_op.unpad_state(b), sim.shard_op.unpad_state(res.x)
+    out["mg_f32"] = {"iterations": int(res.iterations),
+                     "coded": sim.shard_op.use_coded,
+                     "step1": ((b.A.numpy(), b.U.numpy(), x.A.numpy(),
+                                x.U.numpy()) if dist.get_rank() == 0
+                               else None)}
+    return out
+
+
+def task_mg_two(seed):
+    """The 2-rank group of tests/test_torch_shard_mg.py: the distributed
+    V-cycle on (2, 1) 16^3 (distributed to the coarsest level) and STATIC
+    (NZl = 7: it gathers at level 0), and the float64 mg Simulation on
+    (2, 1) (STATIC, 3 steps, float64 dots)."""
+    from eddy_currents_3d_tpu_torch import Simulation
+    from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
+
+    f64 = torch.float64
+    out = {"vcycle": _mg_vcycles([((16, 16, 16), (2, 1)), (STATIC, (2, 1))],
+                                 seed)}
+    sim = Simulation(_model(STATIC, 3), f64, f64, mesh=make_mesh(2),
+                     precond="mg")
+    out["mg_f64"] = _sim_out(*sim.run(), sim)
+    return out
+
+
 TASKS = {"four": task_four, "two": task_two, "team7": task_team7,
-         "coded": task_coded, "yz4": task_yz4, "yz8": task_yz8}
+         "coded": task_coded, "yz4": task_yz4, "yz8": task_yz8,
+         "mg_four": task_mg_four, "mg_two": task_mg_two}

@@ -11,6 +11,9 @@ its own, at float64, on the static case over 3 steps:
   wall times; the field files within 1e-9 of each field's scale, the source
   files byte for byte.  ``--mesh 1`` outside torchrun starts a group of one
   rank itself and runs in this process.
+* ``--mesh 2 --precond mg`` against the JAX CLI's ``--mesh 2 --precond
+  mg``: the same lines, the field files within one float32 rounding plus
+  1e-9 of scale, the source files' values within 4e-16 relative.
 * A mesh run checkpointed at step 1 and resumed writes a last checkpoint
   equal to the uninterrupted mesh run's bit for bit; the mesh's step-1
   checkpoint resumes on one device within 1e-9 of scale of the mesh run.
@@ -29,6 +32,7 @@ import torch
 
 from _torch_parity import CPU
 
+from eddy_currents_3d_tpu.__main__ import main as jmain
 from eddy_currents_3d_tpu.io.vtk import read_vtk_vectors
 
 from eddy_currents_3d_tpu_torch.__main__ import main
@@ -75,7 +79,7 @@ def runs(tmp_path_factory):
     (root / "in.vxc").write_text(tcases.case_static(
         shape_xyz=(16, 14, 12), steps=3, jump=0.001))
     out = {}
-    for name in ("one", "m1", "m2", "m22", "k"):
+    for name in ("one", "m1", "m2", "m22", "k", "mg2", "jax_mg2"):
         (root / name).mkdir()
     out["one"] = _main(root / "one", ["-o", "out"] + F64)
     out["m1"] = _main(root / "m1", ["-o", "out", "--mesh", "1"] + F64)
@@ -84,6 +88,8 @@ def runs(tmp_path_factory):
                           + ck + F64)
     out["m22"] = _torchrun(root / "m22", 4, ["-o", "out", "--mesh", "2,2"]
                            + F64)
+    out["mg2"] = _torchrun(root / "mg2", 2, ["-o", "out", "--mesh", "2",
+                                             "--precond", "mg"] + F64)
     out["k1"] = _torchrun(root / "k", 2, ["-o", "-", "-q", "--mesh", "2",
                                           "--steps", "1"] + ck + F64)
     shutil.copytree(root / "k" / "ck", root / "k1_ck")
@@ -159,3 +165,56 @@ def test_mesh_checkpoint_resumes_on_one_device(runs):
                                atol=TOL * scale)
     np.testing.assert_allclose(st.carry.numpy(), mesh.carry.numpy(), rtol=0,
                                atol=TOL * mesh.carry.abs().max().item())
+
+
+def test_cli_mesh_mg_matches_jax_cli(runs):
+    """``--mesh 2 --precond mg`` at float64 on 2 gloo ranks against the JAX
+    CLI's ``--mesh 2 --precond mg`` (its GSPMD tier on 2 of its fake
+    devices): every printed line the same but the backend line and the
+    wall times; the field files within 1e-9 of each field's scale beyond
+    one float32 rounding (two float64 answers that close can round to
+    neighbouring float32 values); the source files hold the same cells and
+    values within 4e-16 relative (tests/test_torch_cli.py's moving-case
+    rule: here step 2's values differ by an ulp on one device too)."""
+    rc, text = runs["mg2"][:2]
+    assert rc == 0, runs["mg2"][2:]
+    root = runs["root"]
+    old = os.getcwd()
+    out = io.StringIO()
+    os.chdir(root / "jax_mg2")
+    try:
+        with contextlib.redirect_stdout(out):
+            assert jmain(["../in.vxc", "-o", "out", "--dtype", "f64",
+                          "--mesh", "2", "--precond", "mg"]) == 0
+    finally:
+        os.chdir(old)
+    assert _prints(text) == _prints(out.getvalue())
+    backend = [ln for ln in text.splitlines() if ln.startswith("backend")]
+    assert "field plain per block of 2x1" in backend[0]
+    assert "precond=mg" in backend[0]
+    ref, mesh = root / "jax_mg2" / "out", root / "mg2" / "out"
+    names = sorted(os.listdir(ref))
+    assert names and sorted(os.listdir(mesh)) == names
+    for n in names:
+        fr = read_vtk_vectors(str(ref / n))
+        fm = read_vtk_vectors(str(mesh / n))
+        if n.startswith("src_"):
+            # the same cells; JAX evaluates the source expressions inside
+            # its jitted step, where XLA's folding moves them by an ulp
+            # against the host float64 evaluation (ROADMAP Queue 3), on
+            # one device as on the mesh
+            bm, br = (mesh / n).read_bytes(), (ref / n).read_bytes()
+            head = br.index(b"CELL_DATA")
+            assert bm[:head] == br[:head], n
+            np.testing.assert_allclose(fm["Vector_field_SRC"],
+                                       fr["Vector_field_SRC"], rtol=4e-16,
+                                       atol=0, err_msg=n)
+            continue
+        for key in fr:
+            if key == "dims":
+                continue
+            a, b = fr[key].astype(np.float64), fm[key].astype(np.float64)
+            ulp = np.spacing(np.maximum(np.abs(fr[key]), np.abs(fm[key]))
+                             .astype(np.float32)).astype(np.float64)
+            scale = max(np.abs(a).max(), 1e-30)
+            assert (np.abs(b - a) - ulp).max() <= TOL * scale, (n, key)

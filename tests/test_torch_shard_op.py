@@ -57,6 +57,7 @@ from eddy_currents_3d_tpu_torch import Simulation
 from eddy_currents_3d_tpu_torch.assembly.assemble import assemble_operator
 from eddy_currents_3d_tpu_torch.assembly.stencil import State
 from eddy_currents_3d_tpu_torch.parallel.mesh import make_mesh
+from eddy_currents_3d_tpu_torch.parallel.shard_mg import ShardedMG
 from eddy_currents_3d_tpu_torch.testing import cases as tcases
 
 SEED = 3
@@ -295,7 +296,10 @@ def test_mesh_run_writes_the_global_vtk(four, vtk_dir, tmp_path):
 def test_mesh_options_raise():
     """What the port's mesh does not take raises by name (one rank, gloo
     on a file store); make_mesh checks the group and the mesh shape.  What
-    it has come to take runs: use_coded=True takes the coded tier, the
+    it has come to take runs: precond="mg" builds on the field tier with
+    the V-cycle on the rank's block (parallel/shard_mg.py), and
+    use_shard_map=False on the field tier, never coded (the JAX package's
+    GSPMD tier); use_coded=True takes the coded tier, the
     float32 default does too (as in JAX, coded_op stays None: the tier is
     the shard operator's), checkpoints are written on a mesh, and a mesh
     of one rank has no neighbour along y either."""
@@ -318,11 +322,15 @@ def test_mesh_options_raise():
             mesh = make_mesh(1)
             assert mesh.device == CPU and mesh.lo is None and mesh.hi is None
             assert mesh.n_y == 1 and mesh.ylo is None and mesh.yhi is None
-            for kw, msg in (({"precond": "mg"}, "GSPMD tier"),
-                            ({"use_shard_map": False}, "GSPMD tier"),
-                            ({"precond": "ilu0"}, "single-device only")):
-                with pytest.raises(ValueError, match=msg):
-                    Simulation(mt, mesh=mesh, **kw)
+            with pytest.raises(ValueError, match="single-device only"):
+                Simulation(mt, mesh=mesh, precond="ilu0")
+            # the JAX package's GSPMD tier: the per-block field tier, with
+            # the V-cycle on the rank's block under "mg"
+            sim = Simulation(mt, mesh=mesh, precond="mg")
+            assert not sim.shard_op.use_coded
+            assert isinstance(sim._mg, ShardedMG)
+            sim = Simulation(mt, mesh=mesh, use_shard_map=False)
+            assert not sim.shard_op.use_coded and sim.precond is None
             assert Simulation(mt, mesh=mesh, use_coded=True).shard_op.use_coded
             sim = Simulation(mt, mesh=mesh)
             assert sim.coded_op is None and sim.shard_op.use_coded
