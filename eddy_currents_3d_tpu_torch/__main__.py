@@ -13,6 +13,12 @@ card unless ``--device`` names another device (``--device cpu``), at
 every ``--dtype`` (float64 on the flat-roll operator) and
 ``--coeff-dtype``.
 
+``--trace PATH`` keeps the run's spans (``utils/trace.py``) and writes
+them to PATH as Chrome trace-event JSON, which Perfetto opens
+(ui.perfetto.dev, "Open trace file"): the host's spans on one track, the
+card's step and solve intervals and its waits on a second, on the one host
+clock; on a mesh each rank writes its own, ``PATH.rank<r>``.
+
 ``--mesh Z[,Y]`` runs the multi-device tier (``parallel/shard_op.py``) on
 ``Z x Y`` (z, y) blocks, one process a block, under torchrun::
 
@@ -97,6 +103,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint every N steps (requires --checkpoint-dir)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest checkpoint in --checkpoint-dir")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="keep the run's spans and write them to PATH as "
+                   "Chrome trace-event JSON (open it in Perfetto, "
+                   "ui.perfetto.dev): host spans on one track, the card's "
+                   "step and solve intervals and waits on a second, on one "
+                   "clock; on a mesh rank r writes PATH.rank<r>")
     p.add_argument("-q", "--quiet", action="store_true",
                    help="suppress the parameter/progress prints")
     return p
@@ -119,6 +131,22 @@ def _route(sim) -> str:
     if sim.field_op is not None:
         return "field tier"
     return "flat-roll"
+
+
+def _traced(s: dict) -> str:
+    """A trace summary (``utils/trace.py`` ``summary``) in one line; the
+    card waited at least the share given, and at most that plus what a step
+    spends outside its solve."""
+    if not s["steps"]:
+        return "no step"
+    line = f"host {s['step_host_ms_per_step']:.3f} ms a step"
+    if s["step_device_ms_per_step"] is not None:
+        line += (f"; card {s['step_device_ms_per_step']:.3f} ms a step, "
+                 f"{s['step_outside_solve_ms_per_step']:.3f} of it outside "
+                 f"the solve, solve {s['solve_device_us_per_iteration']:.1f} "
+                 f"us an iteration, waited at least "
+                 f"{s['device_wait_pct']:.2f}% of the run")
+    return line
 
 
 def main(argv=None) -> int:
@@ -201,12 +229,14 @@ def _run(args, device, mesh) -> int:
     """The run of ``main`` on ``device``, on this rank's block of
     ``mesh`` if one is given."""
     import gc
+    import json
     import time
 
     import torch
 
     from .models.vxc import read_vxc
     from .sim.simulate import Simulation
+    from .utils import trace
 
     model = read_vxc(args.vxc)
     outdir = args.out if args.out is not None else model.solver.files
@@ -258,35 +288,49 @@ def _run(args, device, mesh) -> int:
         if output_dir:
             print(f"output    : {output_dir}/field_N.vtk, src_N.vtk")
 
-    if args.scan:
-        t0 = time.perf_counter()
-        state, sdiag = sim.run_scan(num_steps=args.steps,
-                                    output_dir=output_dir,
-                                    checkpoint_dir=args.checkpoint_dir,
-                                    checkpoint_every=args.checkpoint_every,
-                                    resume=args.resume)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-        start = int(sdiag["start_step"])
-        it = sdiag["iterations"].tolist()
-        diag = {
-            "wall_s": wall, "io_s": float(sdiag["io_s"]),
-            "steps": len(it),
-            "iterations": it, "total_iterations": int(sum(it)),
-            "unconverged_steps":
-                [start + i for i, c in enumerate(sdiag["converged"].tolist())
-                 if not c],
-        }
-    else:
-        state, diag = sim.run(
-            num_steps=args.steps,
-            output_dir=output_dir,
-            progress=info,
-            checkpoint_dir=args.checkpoint_dir,
-            checkpoint_every=args.checkpoint_every,
-            resume=args.resume,
-        )
+    if args.trace:
+        trace.enable()
+    try:
+        if args.scan:
+            t0 = time.perf_counter()
+            state, sdiag = sim.run_scan(num_steps=args.steps,
+                                        output_dir=output_dir,
+                                        checkpoint_dir=args.checkpoint_dir,
+                                        checkpoint_every=args.checkpoint_every,
+                                        resume=args.resume)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            start = int(sdiag["start_step"])
+            it = sdiag["iterations"].tolist()
+            diag = {
+                "wall_s": wall, "io_s": float(sdiag["io_s"]),
+                "steps": len(it),
+                "iterations": it, "total_iterations": int(sum(it)),
+                "unconverged_steps":
+                    [start + i
+                     for i, c in enumerate(sdiag["converged"].tolist())
+                     if not c],
+            }
+        else:
+            state, diag = sim.run(
+                num_steps=args.steps,
+                output_dir=output_dir,
+                progress=info,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every,
+                resume=args.resume,
+            )
+        spans = trace.report() if args.trace else None
+    finally:
+        if args.trace:
+            trace.disable()
+    if spans is not None:
+        rank = 0 if mesh is None else mesh.rank
+        trace_path = (args.trace if mesh is None
+                      else f"{args.trace}.rank{rank}")
+        with open(trace_path, "w") as f:
+            json.dump(trace.chrome_trace(spans, pid=rank), f)
 
     if info:
         print()
@@ -299,6 +343,8 @@ def _run(args, device, mesh) -> int:
         print(f"solver    : {diag['total_iterations']} iterations total, "
               f"median {med}/step, "
               f"{len(diag['unconverged_steps'])} unconverged step(s)")
+        if spans is not None:
+            print(f"trace     : {trace_path}, {_traced(trace.summary(spans))}")
     if mesh is not None:
         # free the solve's graphs, which hold the group's collectives, and
         # wait for every rank before the group goes

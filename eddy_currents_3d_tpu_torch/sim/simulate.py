@@ -67,6 +67,14 @@ as the JAX package does.  ``run_scan`` is the JAX package's chunked path
 format (``sim/checkpoint.py``).  VTK outputs go through the overlapped
 writer (:class:`_AsyncVtkWriter`): one device-to-host copy per output, the
 encoding on writer threads while the loop steps on.
+
+With the tracer on (``utils/trace.py``) a transient keeps spans at the
+step's layer boundaries: ``run`` (a transient of ``run`` or ``run_scan``),
+``step`` (one ``_step``, with the device clock), inside it ``rhs``
+(``_rhs``, and in it ``rhs.motion``, the source functions' relocation, a
+device wait), ``solve`` (the device loop's solve, with the device clock)
+and ``carry`` (the carry and the surface zeroing); and the counters
+``steps`` and ``iterations``.
 """
 
 from __future__ import annotations
@@ -95,6 +103,7 @@ from ..solvers.bicgstab import DeviceLoop
 from ..solvers.chebyshev import chebyshev_preconditioner
 from ..solvers.ilu0 import ilu0_stencil_factorize
 from ..solvers.multigrid import build_mg
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.graph import read_host
 from .motion import FunctionMotion, MotionState, advance_function, motion_init
@@ -631,14 +640,18 @@ class Simulation:
     @staticmethod
     def _read_steps(infos):
         """([iterations], [converged]) of ``infos`` on the host, in one read
-        where they are device tensors."""
+        where they are device tensors; the iterations go to the tracer's
+        ``iterations`` counter."""
         if not infos or not isinstance(infos[0].iterations, torch.Tensor):
-            return ([int(i.iterations) for i in infos],
-                    [bool(i.converged) for i in infos])
-        its = torch.stack([i.iterations for i in infos])
-        conv = torch.stack([i.converged for i in infos]).to(its.dtype)
-        its, conv = read_host(torch.stack([its, conv])).tolist()
-        return its, [bool(c) for c in conv]
+            its = [int(i.iterations) for i in infos]
+            conv = [bool(i.converged) for i in infos]
+        else:
+            its = torch.stack([i.iterations for i in infos])
+            conv = torch.stack([i.converged for i in infos]).to(its.dtype)
+            its, conv = read_host(torch.stack([its, conv])).tolist()
+            conv = [bool(c) for c in conv]
+        trace.count("iterations", sum(its))
+        return its, conv
 
     @property
     def captures(self) -> int:
@@ -681,8 +694,9 @@ class Simulation:
         if tier is not None:
             b, x0 = tier.pad_state(b), tier.pad_state(x0)
         loop = self._loop(b)
-        res = (loop.reference(b, x0, self._tol) if eager
-               else loop.solve(b, x0, self._tol, read=read))
+        with trace.span("solve", self.device, "interval"):
+            res = (loop.reference(b, x0, self._tol) if eager
+                   else loop.solve(b, x0, self._tol, read=read))
         if tier is not None:
             res = res._replace(x=tier.unpad_state(res.x))
         return res
@@ -708,15 +722,19 @@ class Simulation:
             vmech_vals = np.array([vm(t) for vm in model.vmech], np.float64)
             movestop = motion.movestop
             dist_rows, comp_rows = [], []
-            for comp, fn, _, _, fm in self._funs:
-                drow, crow, movestop, flat = advance_function(
-                    fm, motion.distance[fm.index], motion.comp[fm.index],
-                    movestop, vmech_vals, dt, model.delta)
-                dist_rows.append(drow)
-                comp_rows.append(crow)
+            # every function's motion first, host only, under one span; then
+            # the scatter in function order
+            with trace.span("rhs.motion", self.device, "wait"):
+                for *_, fm in self._funs:
+                    drow, crow, movestop, flat = advance_function(
+                        fm, motion.distance[fm.index], motion.comp[fm.index],
+                        movestop, vmech_vals, dt, model.delta)
+                    dist_rows.append(drow)
+                    comp_rows.append(crow)
+                    src_cells.append(flat)
+            for (comp, fn, *_), flat in zip(self._funs, src_cells):
                 val = self._cast(fn(t))
                 base[comp].index_fill_(0, self._upload(self._own(flat)), val)
-                src_cells.append(flat)
                 src_values.append(val)
             motion = MotionState(distance=np.stack(dist_rows),
                                  movestop=movestop,
@@ -757,7 +775,8 @@ class Simulation:
         cond = self._cond
         inert = self._inert
         bnd_a = self._bnd_a
-        b, x0, rhs_A, motion, src_cells, src_values = self._rhs(state, t)
+        with trace.span("rhs"):
+            b, x0, rhs_A, motion, src_cells, src_values = self._rhs(state, t)
 
         # ---- solve (EC3D.f90:408) ----
         # the device loop makes no host read: on the card the iterations
@@ -767,9 +786,11 @@ class Simulation:
         A_new, U_new = res.x.A, res.x.U
 
         # ---- post-solve inertial carry + surface zeroing (EC3D.f90:412-432)
-        carry = torch.where(cond[None], inert[None] * A_new - rhs_A, rhs_A)
-        carry = torch.where(bnd_a, 0.0, carry)
-        A_out = torch.where(bnd_a, 0.0, A_new)
+        with trace.span("carry"):
+            carry = torch.where(cond[None], inert[None] * A_new - rhs_A,
+                                rhs_A)
+            carry = torch.where(bnd_a, 0.0, carry)
+            A_out = torch.where(bnd_a, 0.0, A_new)
 
         new_state = SimState(
             A=A_out, U=U_new, carry=carry, motion=motion,
@@ -865,7 +886,9 @@ class Simulation:
         try:
             for idx in range(start, len(steps)):
                 t, out = steps[idx]
-                state, info = self._step(state, t)
+                with trace.span("step", self.device, "interval", step=idx,
+                                counts="steps"):
+                    state, info = self._step(state, t)
                 infos.append(info)
                 if out is not None:
                     t1 = _time.perf_counter()
@@ -934,18 +957,20 @@ class Simulation:
         int32, ``relres`` in the solver's dtype, ``converged`` bool, each
         one entry per step run, ``start_step`` and ``io_s``).
         """
-        state, start, fingerprint = self._start(initial_state,
-                                                checkpoint_dir, resume)
-        steps = self.steps if num_steps is None else self.steps[:num_steps]
-        state, infos, t_io = self._run_steps(
-            steps, state, start, fingerprint, output_dir,
-            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
-        # resuming at/after the last step leaves nothing to run; the empty
-        # relres takes the state's dtype, as in JAX
-        iters, conv = self._read_steps(infos)
-        self._settle()
-        rr = (torch.stack([i.relres for i in infos]) if infos
-              else torch.zeros((0,), dtype=self.dtype, device=self.device))
+        with trace.span("run", transient=True):
+            state, start, fingerprint = self._start(initial_state,
+                                                    checkpoint_dir, resume)
+            steps = self.steps if num_steps is None else self.steps[:num_steps]
+            state, infos, t_io = self._run_steps(
+                steps, state, start, fingerprint, output_dir,
+                checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every)
+            # resuming at/after the last step leaves nothing to run; the
+            # empty relres takes the state's dtype, as in JAX
+            iters, conv = self._read_steps(infos)
+            self._settle()
+            rr = (torch.stack([i.relres for i in infos]) if infos
+                  else torch.zeros((0,), dtype=self.dtype, device=self.device))
         return state, {"iterations": torch.tensor(iters, dtype=torch.int32),
                        "relres": rr,
                        "converged": torch.tensor(conv, dtype=torch.bool),
@@ -979,32 +1004,36 @@ class Simulation:
         counts, the wall / io / solver-sync seconds, the host reads of the
         solves' (done, it), and the unconverged steps).
         """
-        state, start, fingerprint = self._start(initial_state,
-                                                checkpoint_dir, resume)
-        steps = self.steps if num_steps is None else self.steps[:num_steps]
-        t0 = _time.perf_counter()
-        state, infos, t_io = self._run_steps(
-            steps, state, start, fingerprint, output_dir, on_output,
-            progress, checkpoint_dir, checkpoint_every)
-        if self.device.type == "cuda":
-            # wait for the last step on an event: a wait that
-            # set_sync_debug_mode does not flag, so a run with outputs can
-            # be held to no synchronizing call
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-            done.synchronize()
-        wall = _time.perf_counter() - t0
+        with trace.span("run", transient=True):
+            state, start, fingerprint = self._start(initial_state,
+                                                    checkpoint_dir, resume)
+            steps = self.steps if num_steps is None else self.steps[:num_steps]
+            t0 = _time.perf_counter()
+            state, infos, t_io = self._run_steps(
+                steps, state, start, fingerprint, output_dir, on_output,
+                progress, checkpoint_dir, checkpoint_every)
+            if self.device.type == "cuda":
+                # wait for the last step on an event: a wait that
+                # set_sync_debug_mode does not flag, so a run with outputs
+                # can be held to no synchronizing call; with the tracer on
+                # it anchors the run's timing events to the host clock
+                done = torch.cuda.Event(enable_timing=trace.ON)
+                done.record(torch.cuda.current_stream(self.device))
+                done.synchronize()
+                trace.anchor(done)
+            wall = _time.perf_counter() - t0
 
-        # the per-step diagnostics, read once after the loop (JAX
-        # simulate.py:987-988)
-        iters, conv = self._read_steps(infos)
-        self._settle()
-        unconverged = [start + i for i, c in enumerate(conv) if not c]
-        if unconverged:
-            # the reference prints the residual norm on itmax overflow and
-            # carries on (solvers.f90:25-27)
-            print(f"WARNING: solver hit itmax without converging at "
-                  f"{len(unconverged)} step(s), first at step {unconverged[0]}")
+            # the per-step diagnostics, read once after the loop (JAX
+            # simulate.py:987-988)
+            iters, conv = self._read_steps(infos)
+            self._settle()
+            unconverged = [start + i for i, c in enumerate(conv) if not c]
+            if unconverged:
+                # the reference prints the residual norm on itmax overflow
+                # and carries on (solvers.f90:25-27)
+                print(f"WARNING: solver hit itmax without converging at "
+                      f"{len(unconverged)} step(s), first at step "
+                      f"{unconverged[0]}")
         return state, {
             "wall_s": wall,
             "io_s": t_io,
