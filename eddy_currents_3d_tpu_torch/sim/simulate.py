@@ -105,7 +105,7 @@ from ..solvers.ilu0 import ilu0_stencil_factorize
 from ..solvers.multigrid import build_mg
 from ..utils import trace
 from ..utils.device import resolve_device
-from ..utils.graph import read_host
+from ..utils.graph import WhilePrimer, read_host
 from .motion import FunctionMotion, MotionState, advance_function, motion_init
 
 __all__ = ["Simulation", "SimState", "StepInfo"]
@@ -509,6 +509,7 @@ class Simulation:
         self._loops = {}
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
+        self._primer = None   # utils/graph.py WhilePrimer, at the first run
         self._staged = []   # (event, pinned buffer) of copies in flight
 
         self.steps = _schedule(model.tran)
@@ -876,6 +877,15 @@ class Simulation:
         infos = []
         t_io = 0.0
         last_ck = None
+        if self.device.type == "cuda" and (self.mesh is None
+                                           or self.mesh.size == 1):
+            # a profiler session loses records of the first WHILE body it
+            # sees run: let that be the primer's, not a solve's.  Made at
+            # the first run, so that a session never sees its capture.
+            if self._primer is None:
+                self._primer = WhilePrimer(self.device)
+            if torch.autograd.profiler._is_profiler_enabled:
+                self._primer.launch()
         tick = max(len(self.steps) // 100, 1)
         mesh = self.shard_op
         state = self.shard_state(state)

@@ -47,6 +47,14 @@ the dots an iteration forms together (``as·s`` with ``as·as``, ``r·r`` with
 ``r·r0``; ``b·b`` with ``r·r`` at setup) go as one small vector, one
 all-reduce each, inside the solve's CUDA graphs on the card, with no host
 read, as the JAX package's psums sit inside its while loop.
+
+An iteration is two operator applies and, around them, the vector glue
+(``ops/glue_cuda.py``): its axpys, norms, dots, selects and scalars.  A
+loop whose leaves are contiguous float32 CUDA tensors, with float32 dots
+that are one device's (no ``reduce``, not ``batched``), runs the glue as
+three hand-written kernels (``DeviceLoop.glue == "fused"``); every other
+loop (the CPU, bfloat16 and float64 state, a mesh) runs it in torch ops
+(``"torch"``).  The per-iteration host loop takes the loop's glue too.
 """
 
 from __future__ import annotations
@@ -57,7 +65,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..assembly.stencil import State
+from ..ops.glue_cuda import (TorchGlue, _leaves, _map, glue_route,
+                             solver_glue, tree_axpy)
 from ..utils.graph import Graph, SolveGraph, read_host
 
 __all__ = ["bicgstab_wr", "bicgstab_wr_right", "bicgstab_jacobi",
@@ -69,17 +78,6 @@ __all__ = ["bicgstab_wr", "bicgstab_wr_right", "bicgstab_jacobi",
 # batch, so a solve of n iterations takes ceil(n / K) reads (at least
 # one).  On the card a solve is one graph launch and K plays no part.
 K = 4
-
-
-def _leaves(a):
-    return (a.A, a.U) if isinstance(a, State) else (a,)
-
-
-def _map(fn, *trees):
-    """Apply ``fn`` leafwise over States (or plain tensors)."""
-    if isinstance(trees[0], State):
-        return State(fn(*(t.A for t in trees)), fn(*(t.U for t in trees)))
-    return fn(*trees)
 
 
 def tree_dot(a, b, dtype=None):
@@ -104,13 +102,6 @@ def dots(pairs, dtype=None, reduce=None):
     return list(v.unbind(0))
 
 
-def tree_axpy(alpha, x, y):
-    """y + alpha * x, leafwise.  ``alpha`` is cast to each leaf's dtype so
-    higher-precision reduction scalars (dot_dtype) don't promote the
-    iterate."""
-    return _map(lambda xi, yi: yi + alpha.to(xi.dtype) * xi, x, y)
-
-
 class SolveResult(NamedTuple):
     x: object             # solution (State or tensor)
     iterations: int
@@ -119,16 +110,6 @@ class SolveResult(NamedTuple):
     # seconds the host spent blocked on the ``(done, it)`` reads
     sync_s: float = 0.0
     reads: int = 0        # host reads of (done, it)
-
-
-def _put(dst, fn, *args, on=None):
-    """``dst := fn(*args)``, written into ``dst``; where the 0-d bool
-    ``on`` is given, only where it is True (a select: ``dst`` keeps its
-    bits otherwise)."""
-    if on is None:
-        fn(*args, out=dst)
-    else:
-        torch.where(on, fn(*args), dst, out=dst)
 
 
 def _copy(dst, src):
@@ -175,7 +156,9 @@ class DeviceLoop:
     and one read of ``(done, it)`` unless the caller defers it.  A float
     ``tol`` is baked into the graphs: a loop takes one.  A program that
     cannot be captured raises: the loop never falls back to eager launches
-    on the card."""
+    on the card.  ``glue``: the route of the iteration's vector glue,
+    ``"fused"`` (the glue kernels) or ``"torch"``, set at the first solve
+    (``ops/glue_cuda.py`` :func:`glue_route`)."""
 
     def __init__(self, apply_fn: Callable, itmax: int,
                  dot_dtype: Optional[torch.dtype] = None,
@@ -200,6 +183,8 @@ class DeviceLoop:
         self.batched = batched
         self.captures = 0
         self._dots = partial(dots, dtype=dot_dtype, reduce=reduce)
+        self.glue = None
+        self._glue = None
         self._s = None
         self._graphs = None
         self._tol_const = None
@@ -242,7 +227,14 @@ class DeviceLoop:
         if self.minv is not None or self.scale is not None:
             S.x_out, S.relres_out = like(x0), scalar(td)
         S.status = torch.zeros(2, dtype=torch.int32, device=dev)
+        self.glue = self._route(b, x0, tol)
+        self._glue = (solver_glue if self.glue == "fused"
+                      else TorchGlue(self._dots))
         return S
+
+    def _route(self, b, x0, tol) -> str:
+        return glue_route(b, x0, tol, self.dot_dtype, self.reduce,
+                          self.batched)
 
     # -- the three programs ------------------------------------------------
     def _init(self, S, b, x0, done0=None):
@@ -300,67 +292,8 @@ class DeviceLoop:
     def _iterate(self, c, on=None):
         """One iteration on the carry of ``c``, written in place; with
         ``on`` (a 0-d bool) every store is a select on it."""
-        dots = self._dots
-        if self.mv_dot is None:
-            ap = self._op(c.p)
-            ap_r0, = dots([(ap, c.r0)])
-        else:
-            ap, ap_r0, _ = self._mvd(c.p, c.r0)
-        alpha = c.rr0 / ap_r0
-        s = tree_axpy(-alpha, ap, c.r)
-        ss, = dots([(s, s)])
-        s_rel = torch.sqrt(ss) / c.bnorm
-        conv_s = s_rel < c.tol
-
-        if self.mv_dot is None:
-            as_ = self._op(s)
-            as_s, as_as = dots([(as_, s), (as_, as_)])
-            omega = as_s / as_as
-        else:
-            as_, as_s, as_as = self._mvd(s, s)
-            omega = as_s / as_as
-        # On the half-step exit the reference sets x += alpha*p only
-        # (solvers.f90:34-38) and the loop ends: gating omega (and below
-        # beta) to 0 gives the same x without full-state selects.
-        zero = torch.zeros_like(omega)
-        omega_g = torch.where(conv_s, zero, omega)
-
-        def x_new(xi, pi, si):
-            t = xi + alpha.to(xi.dtype) * pi
-            _put(xi, torch.add, t, omega_g.to(xi.dtype) * si, on=on)
-
-        _map(x_new, c.x, c.p, s)
-        neg = -omega_g
-        _map(lambda ri, si, ai: _put(ri, torch.add, si, neg.to(ai.dtype) * ai,
-                                     on=on), c.r, s, as_)
-        rr, rr0_new = dots([(c.r, c.r), (c.r, c.r0)])
-        r_rel = torch.sqrt(rr) / c.bnorm
-        conv_r = r_rel < c.tol
-
-        # restart r0 = r; p = r (solvers.f90:47-49) == gating beta to 0 and
-        # selecting r0; likewise a converged iteration's p/r0 are dead.
-        restart = (torch.abs(rr0_new) / c.bnorm) < c.tol
-        beta = (alpha / omega) * rr0_new / c.rr0
-        stop = restart | conv_s
-        beta_g = torch.where(stop, torch.zeros_like(beta), beta)
-        omega_p = torch.where(stop, zero, omega)
-
-        def p_new(pi, ri, api):
-            inner = pi - omega_p.to(ri.dtype) * api
-            _put(pi, torch.add, ri, beta_g.to(ri.dtype) * inner, on=on)
-
-        _map(p_new, c.p, c.r, ap)
-        sel = restart if on is None else restart & on
-        _map(lambda r0i, ri: torch.where(sel, ri, r0i, out=r0i), c.r0, c.r)
-        # next iteration's dot(r, r0): on restart r0 := r, so it is the
-        # freshly computed dot(r, r); otherwise rr0_new verbatim
-        _put(c.rr0, torch.where, restart, rr, rr0_new, on=on)
-        _put(c.relres, torch.where, conv_s, s_rel, r_rel, on=on)
-        _put(c.done, torch.bitwise_or, conv_s, conv_r, on=on)
-        if on is None:
-            c.it.add_(1)
-        else:
-            c.it.add_(on.to(torch.int32))
+        _iteration(c, self._op, self._mvd if self.mv_dot is not None
+                   else None, self._dots, self._glue, on)
 
     def _status(self, S):
         torch.stack([S.done.to(torch.int32), S.it], out=S.status)
@@ -502,7 +435,8 @@ class DeviceLoop:
 
     def reference(self, b, x0, tol) -> SolveResult:
         """The same solve by the per-iteration host loop (the plain
-        version), from the same configuration."""
+        version), from the same configuration; its glue routes by the
+        loop's rule (a batched loop, a mesh's, has a ``reduce``)."""
         A = self._scaled
         if self.scale is not None:
             x0 = _map(torch.mul, self.scale[0], x0)
@@ -518,6 +452,28 @@ class DeviceLoop:
         if self.scale is not None:
             res = res._replace(x=_map(torch.mul, self.scale[1], res.x))
         return res
+
+
+def _iteration(c, op, mvd, dots, glue, on=None):
+    """One BiCGSTABwr iteration on the carry ``c`` (``x``, ``r``, ``r0``,
+    ``p``, ``rr0``, ``relres``, ``done``, ``it``; ``bnorm``, ``tol``),
+    written in place: the operator ``op`` with ``dots``, or the fused
+    ``mvd(v, w) -> (A v, dot(A v, w), dot(A v, A v))``, around the three
+    pieces of ``glue`` (``ops/glue_cuda.py``); with ``on`` (a 0-d bool)
+    every store is a select on it."""
+    if mvd is None:
+        ap = op(c.p)
+        ap_r0, = dots([(ap, c.r0)])
+    else:
+        ap, ap_r0, _ = mvd(c.p, c.r0)
+    w = glue.s(c, ap, ap_r0)
+    if mvd is None:
+        as_ = op(w.s)
+        as_s, as_as = dots([(as_, w.s), (as_, as_)])
+    else:
+        as_, as_s, as_as = mvd(w.s, w.s)
+    glue.xr(c, w, as_, as_s, as_as, on)
+    glue.p(c, w, ap, on)
 
 
 def bicgstab_wr(
@@ -593,16 +549,24 @@ def bicgstab_wr_reference(
 ) -> SolveResult:
     """:func:`bicgstab_wr` with one host read of ``done`` per iteration
     (the plain version the device loop is held to, bit for bit; its dots
-    grouped as the loop's for ``reduce``)."""
+    grouped as the loop's for ``reduce``; its glue the one
+    :func:`glue_route` gives the device loop)."""
     dt = partial(dots, dtype=dot_dtype, reduce=reduce)
 
     r = _map(torch.sub, b, apply_fn(x0))
     bb, rr0 = dt([(b, b), (r, r)])         # r0 == r at entry
-    bnorm = torch.sqrt(bb)
-    zero_b = bnorm == 0.0
-    x, r0, p = x0, r, r
-    relres = torch.full((), float("inf"), dtype=bnorm.dtype,
-                        device=bnorm.device)
+    c = _Static()
+    c.bnorm = torch.sqrt(bb)
+    c.tol = tol
+    zero_b = c.bnorm == 0.0
+    c.x, c.r, c.r0, c.p = (_map(torch.clone, v) for v in (x0, r, r, r))
+    c.rr0 = rr0.clone()
+    c.relres = torch.full((), float("inf"), dtype=c.bnorm.dtype,
+                          device=c.bnorm.device)
+    c.done = zero_b.clone()
+    c.it = torch.zeros((), dtype=torch.int32, device=c.bnorm.device)
+    parts = (solver_glue if glue_route(b, x0, tol, dot_dtype, reduce)
+             == "fused" else TorchGlue(dt))
     t0 = time.perf_counter()
     done = bool(zero_b)
     sync_s = time.perf_counter() - t0
@@ -610,49 +574,12 @@ def bicgstab_wr_reference(
     it = 0
     while not done and it <= itmax:
         it += 1
-        if mv_dot is None:
-            ap = apply_fn(p)
-            ap_r0, = dt([(ap, r0)])
-        else:
-            ap, ap_r0, _ = mv_dot(p, r0)
-        alpha = rr0 / ap_r0
-        s = tree_axpy(-alpha, ap, r)
-        ss, = dt([(s, s)])
-        s_rel = torch.sqrt(ss) / bnorm
-        conv_s = s_rel < tol
-
-        if mv_dot is None:
-            as_ = apply_fn(s)
-            as_s, as_as = dt([(as_, s), (as_, as_)])
-            omega = as_s / as_as
-        else:
-            as_, as_s, as_as = mv_dot(s, s)
-            omega = as_s / as_as
-        zero = torch.zeros_like(omega)
-        omega_g = torch.where(conv_s, zero, omega)
-        x = _map(lambda xi, pi, si: (xi + alpha.to(xi.dtype) * pi
-                                     + omega_g.to(xi.dtype) * si), x, p, s)
-        r_new = tree_axpy(-omega_g, as_, s)
-        rr, rr0_new = dt([(r_new, r_new), (r_new, r0)])
-        r_rel = torch.sqrt(rr) / bnorm
-        conv_r = r_rel < tol
-
-        restart = (torch.abs(rr0_new) / bnorm) < tol
-        beta = (alpha / omega) * rr0_new / rr0
-        stop = restart | conv_s
-        beta_g = torch.where(stop, torch.zeros_like(beta), beta)
-        omega_p = torch.where(stop, zero, omega)
-        p = _map(lambda ri, pi, api: ri + beta_g.to(ri.dtype)
-                 * (pi - omega_p.to(ri.dtype) * api), r_new, p, ap)
-        r0 = _map(lambda ri, r0i: torch.where(restart, ri, r0i), r_new, r0)
-        rr0 = torch.where(restart, rr, rr0_new)
-        r = r_new
-        relres = torch.where(conv_s, s_rel, r_rel)
+        _iteration(c, apply_fn, mv_dot, dt, parts)
         t0 = time.perf_counter()
-        done = bool(conv_s | conv_r)
+        done = bool(c.done)
         sync_s += time.perf_counter() - t0
         reads += 1
-    return SolveResult(x=x, iterations=it, relres=relres, converged=done,
+    return SolveResult(x=c.x, iterations=it, relres=c.relres, converged=done,
                        sync_s=sync_s, reads=reads)
 
 

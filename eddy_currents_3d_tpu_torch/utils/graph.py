@@ -31,7 +31,7 @@ from typing import Callable, Optional
 import torch
 
 __all__ = ["counted", "program_scratch", "read_host", "Graph",
-           "SolveGraph"]
+           "SolveGraph", "WhilePrimer"]
 
 _COUNTS: list = []          # every launch count of a kernel wrapper
 _LOCAL = threading.local()  # the scratch store of the program being captured
@@ -165,3 +165,31 @@ class SolveGraph:
     def __del__(self):
         if self._exec is not None and self._lib is not None:
             self._lib.solve_graph_destroy(self._exec)
+
+
+class WhilePrimer:
+    """A small WHILE-node graph (:class:`SolveGraph`) on ``dev``: its body,
+    one one-element kernel, runs ``RUNS`` times a :meth:`launch`.
+
+    A ``torch.profiler`` session on an H100 loses kernel records of the
+    first WHILE body it sees run (CUPTI): the first solve of every traced
+    transient lost some of its first iterations' kernel events, at times
+    the operator's, so the trace fell short of the wrappers' launch counts
+    (PERF.md, Findings).  A run under an active profiler launches one of
+    these before its first solve, and the loss falls on it; a run outside
+    a profiler session launches none.  It writes nothing but its own
+    counter."""
+
+    RUNS = 8
+
+    def __init__(self, dev):
+        self._done = torch.zeros((), dtype=torch.bool, device=dev)
+        self._it = torch.zeros((), dtype=torch.int32, device=dev)
+        self._body = Graph(lambda: self._it.add_(1), dev)
+        self._exec = SolveGraph(None, self._body.raw, None, self._done,
+                                self._it, self.RUNS - 1)
+
+    def launch(self):
+        """The ``RUNS`` iterations, on the current stream."""
+        self._it.zero_()
+        self._exec.launch()

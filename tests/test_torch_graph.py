@@ -5,9 +5,11 @@ one capture serves every later solve of a Simulation, the wrappers' launch
 counts add up what the graphs ran, a run's steps make no synchronizing
 call but the solves' (done, it) reads, the scratch a captured program's
 kernels use dies with its loop, and a checkpoint loads onto the card by
-default.  float64 runs graphed on the card and equals the CPU's float64
-run; a mesh of one rank over NCCL equals the unsharded field tier bit for
-bit with its dots' all-reduce inside the captured solve.  Every test here
+default.  At float32 the iteration's glue runs on the glue kernels
+(``csrc/solver_glue.cu``), elsewhere in torch ops.  float64 runs graphed
+on the card and equals the CPU's float64 run; a mesh of one rank over
+NCCL equals the unsharded field tier on the same (torch) glue bit for bit
+with its dots' all-reduce inside the captured solve.  Every test here
 needs a CUDA device and nvcc and skips without them; the file imports no
 jax:
 
@@ -15,8 +17,12 @@ jax:
 """
 
 import gc
+import json
 import os
+import subprocess
+import sys
 import weakref
+from pathlib import Path
 
 import pytest
 import torch
@@ -28,6 +34,7 @@ from eddy_currents_3d_tpu_torch.sim.simulate import Simulation
 from eddy_currents_3d_tpu_torch.solvers.bicgstab import (
     DeviceLoop, bicgstab_wr, bicgstab_wr_reference)
 from eddy_currents_3d_tpu_torch.testing import cases
+from eddy_currents_3d_tpu_torch.testing.glue import torch_glue
 
 pytestmark = pytest.mark.cuda
 
@@ -89,6 +96,80 @@ def test_launch_counts_follow_the_graph(cuda):
     assert diag["reads"] == [0] * len(sim.steps)
     assert coded_matvec.launches == (2 * len(sim.steps)
                                      + 2 * diag["total_iterations"])
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_glue_kernels_take_the_float32_loops(cuda, name):
+    """The iteration's glue runs on the three glue kernels in every
+    float32 configuration (DeviceLoop.glue "fused", 3 launches an
+    iteration, graphed and eager alike) and on the torch glue, with no
+    glue launch, at bfloat16 and float64 state."""
+    from eddy_currents_3d_tpu_torch.ops.glue_cuda import solver_glue
+
+    dtype, kw = CONFIGS[name]
+    sim = Simulation(_model(), dtype, device=cuda, **kw)
+    sim.run(num_steps=1)                           # captures
+    want = "fused" if dtype == torch.float32 else "torch"
+    assert {loop.glue for loop in sim._loops.values()} == {want}
+    solver_glue.launches = 0
+    _, diag = sim.run()
+    st = sim.init_state()
+    eager = 0
+    for t, _ in sim.steps:
+        st, info = sim._step(st, t, eager=True)
+        eager += info.iterations
+    per = 3 if want == "fused" else 0
+    assert solver_glue.launches == per * (diag["total_iterations"] + eager)
+
+
+_PROFILED_RUN = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from eddy_currents_3d_tpu_torch.ops.coded_cuda import coded_matvec
+from eddy_currents_3d_tpu_torch.ops.glue_cuda import solver_glue
+from eddy_currents_3d_tpu_torch.sim.simulate import Simulation
+from eddy_currents_3d_tpu_torch.testing import cases
+
+def session(fn):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+x = torch.ones(1 << 12, device="cuda")
+session(lambda: x.mul(2.0))
+sim = Simulation(cases.load_case(cases.case_static(shape_xyz=(40, 36, 16),
+                                                   steps=6)),
+                 torch.float32, device="cuda")
+sim.run()
+before = (coded_matvec.launches, solver_glue.launches)
+names = session(sim.run)
+counted = [coded_matvec.launches - before[0], solver_glue.launches - before[1]]
+traced = [sum("whole_march" in n for n in names),
+          sum(any(k in n for k in ("glue_s", "glue_xr", "glue_p"))
+              for n in names)]
+print(json.dumps([counted, traced]))
+"""
+
+
+def test_profiled_run_traces_every_counted_launch(cuda):
+    """One torch.profiler session over a graphed run() holds an event for
+    every launch the wrappers counted: coded_matvec's and the glue
+    kernels'.  A session loses records of the first WHILE body it sees
+    run; the run's WhilePrimer takes that loss.  In a fresh process, its
+    graphs captured after its first session: what a process's earlier
+    sessions leave decides what later ones see (PERF.md)."""
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _PROFILED_RUN], cwd=root,
+                         env={**os.environ, "PYTHONPATH": str(root)},
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    counted, traced = json.loads(out.stdout.strip().splitlines()[-1])
+    assert counted[1] > 0 and traced == counted
 
 
 @pytest.mark.parametrize("case", ["static", "moving"])
@@ -202,8 +283,13 @@ def test_mesh_of_one_rank_over_nccl(cuda, tmp_path):
             assert len(calls) == n and sim.captures == 1
             assert not d["unconverged_steps"]
             if kw:
+                # the unsharded run on the mesh's glue, the torch ops (the
+                # glue kernels sum the dots in another order)
                 ref = Simulation(_model(), torch.float32, device=cuda, **kw)
-                sr, dr = ref.run()
+                with torch_glue():
+                    sr, dr = ref.run()
+                assert {l.glue for l in ref._loops.values()} == {"torch"}
+                assert {l.glue for l in sim._loops.values()} == {"torch"}
                 assert d["iterations"] == dr["iterations"]
                 assert (torch.equal(st.A, sr.A)
                         and torch.equal(st.carry, sr.carry))
@@ -221,7 +307,8 @@ def test_mesh_of_one_rank_over_nccl(cuda, tmp_path):
 def test_batched_programs_equal_the_while_graph(cuda):
     """The batched form a mesh of several ranks takes (setup, a batch of K
     gated iterations and finish, each a graph of its own, one read of
-    (done, it) a batch) equals the WHILE-node graph bit for bit."""
+    (done, it) a batch) equals the WHILE-node graph bit for bit, both on
+    the torch glue (the batched form's own: its stores are gated)."""
     from eddy_currents_3d_tpu_torch.solvers.bicgstab import K
 
     runs = {}
@@ -229,11 +316,16 @@ def test_batched_programs_equal_the_while_graph(cuda):
         sim = Simulation(_model(), torch.float32, device=cuda,
                          use_coded=False)
         nz, ny, nx = sim.model.shape_zyx
-        sim._loops[((3, nz, ny, nx), (nz, ny, nx))] = DeviceLoop(
-            itmax=sim.model.solver.itmax, pool=sim._pool, batched=batched,
-            **sim._solve_form())
-        runs[batched] = sim.run()
-        assert sim.captures == 1
+        loop = DeviceLoop(itmax=sim.model.solver.itmax, pool=sim._pool,
+                          batched=batched, **sim._solve_form())
+        sim._loops[((3, nz, ny, nx), (nz, ny, nx))] = loop
+        with torch_glue():
+            runs[batched] = sim.run()
+        assert sim.captures == 1 and loop.glue == "torch"
+        # without the patch the WHILE graph's float32 loop takes the
+        # glue kernels, and the batched form keeps the torch glue
+        want = "torch" if batched else "fused"
+        assert loop._route(loop._s.b, loop._s.x0, sim._tol) == want
     (s0, d0), (s1, d1) = runs[False], runs[True]
     assert d1["iterations"] == d0["iterations"]
     assert torch.equal(s1.A, s0.A) and torch.equal(s1.U, s0.U)
