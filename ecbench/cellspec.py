@@ -1,10 +1,13 @@
 """The benchmark's data, found by name: ``BENCHMARK.json`` at the root of the
 checkout names each cell's configuration and traffic; each has a file of
 its own (``configs/<config>.json``, ``workloads/<traffic>.json``), each
-per-layer or end-to-end metric a reader (``metrics/<name>.py``), each
-operator route a kernel list (``kernels/*.json``) and each cell its limits
-(``limits/<cell>.json``).  A later cell, metric or route is a new file;
-nothing here changes for it."""
+configuration's case a module (``cases/<case>.py``, named by the
+configuration's ``"case"``), each per-layer or end-to-end metric a reader
+(``metrics/<name>.py``, with an ``install`` where it times the window
+itself), each operator route a kernel list
+(``kernels/*.json``) and each cell its limits (``limits/<cell>.json``).  A
+later cell, configuration, metric or route is a new file; nothing here
+changes for it."""
 
 from __future__ import annotations
 
@@ -13,16 +16,18 @@ import json
 import re
 from pathlib import Path
 
-__all__ = ["Cell", "load_cell", "load_reader", "kernel_lists", "NAME", "UNIT"]
+__all__ = ["Cell", "load_cell", "load_case", "load_reader", "load_install",
+           "kernel_lists", "NAME", "UNIT", "DEFAULT_CASE"]
 
 HERE = Path(__file__).resolve().parent
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+DEFAULT_CASE = "coil_over_plate"    # a configuration without "case"
 
 
 class Cell:
-    """One entry of ``workloads`` with its configuration, traffic, metrics
-    and limits."""
+    """One entry of ``workloads`` with its configuration, traffic, case,
+    metrics and limits."""
 
     def __init__(self, bench: dict, name: str, here: Path = HERE):
         cells = {w["name"]: w for w in bench["workloads"]}
@@ -34,6 +39,7 @@ class Cell:
         self.chips = int(w["chips"])
         self.config = _json(here / "configs" / f"{w['config']}.json")
         self.traffic = _json(here / "workloads" / f"{w['traffic']}.json")
+        self.case = load_case(here, self.config)
         self.limits = _json(here / "limits" / f"{name}.json")["limits"]
         applies = lambda m: name in m.get("workloads", [name])
         self.end_to_end = [m for m in bench["end_to_end"] if applies(m)]
@@ -51,14 +57,38 @@ def load_cell(root: Path, name: str, here: Path = HERE) -> Cell:
     return Cell(_json(root / "BENCHMARK.json"), name, here)
 
 
-def load_reader(here: Path, metric: str):
-    """The ``read(ctx)`` function of ``metrics/<metric>.py``."""
-    path = here / "metrics" / f"{metric}.py"
+def _module(here: Path, kind: str, name: str):
+    """The module ``<kind>/<name>.py`` under ``here``, loaded from its
+    file."""
+    if not NAME.match(name):
+        raise ValueError(f"{kind}: {name!r} is not a name")
     spec = importlib.util.spec_from_file_location(
-        f"ecbench_metric_{metric.replace('.', '_').replace('-', '_')}", path)
+        f"ecbench_{kind}_{name.replace('.', '_').replace('-', '_')}",
+        here / kind / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_case(here: Path, config: dict):
+    """The case module ``cases/<case>.py`` that ``config`` names under
+    ``"case"``, ``DEFAULT_CASE`` without it: its ``vxc_text(config,
+    traffic, phase)`` gives the ``.vxc`` text the program reads, its
+    ``reference_case(config, traffic)`` the ``reference.case.Case`` the
+    float64 reference builds its system from."""
+    return _module(here, "cases", config.get("case", DEFAULT_CASE))
+
+
+def load_reader(here: Path, metric: str):
+    """The ``read(ctx)`` function of ``metrics/<metric>.py``."""
+    return _module(here, "metrics", metric).read
+
+
+def load_install(here: Path, metric: str):
+    """The ``install(sim)`` function of ``metrics/<metric>.py``, None where
+    it has none.  The harness calls it just before the window; what it
+    returns reaches the reader as ``ctx["installed"][metric]``."""
+    return getattr(_module(here, "metrics", metric), "install", None)
 
 
 def kernel_lists(here: Path) -> list[dict]:

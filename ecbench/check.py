@@ -1,7 +1,8 @@
 """What decides ``correct``: a sample of the window's steps, drawn from the
 seed, kept as the program produced them and judged after the window by the
 float64 reference (``reference/step.py``), which builds the step's
-system from the cell's data on the host.
+system on the host from the cell's data: the case that the configuration's
+case module (``cases/<case>.py`` ``reference_case``) gives.
 
 :class:`Recorder` wraps the Simulation's ``_step`` and ``solve`` on the
 instance.  It keeps, for the first step of the window's first transient
@@ -71,12 +72,12 @@ class Recorder:
         return list(self._kept.values())
 
 
-def judge(config: dict, traffic: dict, samples) -> dict:
-    """The largest of each reading over ``samples`` for the cell of
-    ``config`` and ``traffic``."""
+def judge(case, samples) -> dict:
+    """The largest of each reading over ``samples`` for the cell whose
+    reference data is ``case`` (a ``reference.case.Case``)."""
     from .reference.step import StepReference
 
-    ref = StepReference(config, traffic)
+    ref = StepReference(case)
     worst = {}
     for phase, s, before, solved, after, cells in samples:
         for name, v in ref.judge(s, phase, before, solved, after,

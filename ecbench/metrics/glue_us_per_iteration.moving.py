@@ -1,0 +1,10 @@
+"""glue_us_per_iteration.moving: ``glue_us_per_iteration``, by its reader, in
+team7.moving, where it moves ``solve_card_ms_per_step``: that cell's wall
+time is paced by the shared host and spreads too far for a bound (PERF.md)."""
+
+from pathlib import Path
+
+from ecbench.cellspec import load_reader
+
+read = load_reader(Path(__file__).resolve().parents[1],
+                   "glue_us_per_iteration")

@@ -10,8 +10,9 @@ post-solve carry ``J = (2C/dt) A_new - rhs`` (EC3D.f90:412-432).
 The reference does not solve: it judges.  Given the program's state before
 a step (its A and carry; zeros at a transient's first step, which the
 reference makes itself) and the program's state after it, it builds the
-step's system from the cell's data alone (``case.py``, ``system.py``,
-``motion.py``), on the host with numpy and scipy, and reads
+step's system from the cell's data alone (the :class:`~.case.Case` of the
+configuration's case module, ``system.py``, ``motion.py``), on the host
+with numpy and scipy, and reads
 
 * ``relres``: the true relative residual, in float64, of the A and U the
   program's solve returned;
@@ -28,7 +29,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from .case import read_case
 from .motion import Motion
 from .system import assemble
 
@@ -41,10 +41,10 @@ def _host(x) -> np.ndarray:
 
 
 class StepReference:
-    """The float64 system of a configuration and a traffic file."""
+    """The float64 system of a :class:`~.case.Case`."""
 
-    def __init__(self, config: dict, traffic: dict):
-        self.case = case = read_case(config, traffic)
+    def __init__(self, case):
+        self.case = case
         self.sys = sys_ = assemble(case)
         N = sys_.N
         self.M_UA = sys_.M[3 * N:, :3 * N].tocsr()    # U rows, A columns

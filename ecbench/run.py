@@ -5,28 +5,33 @@ implicit eddy-current steps on one CUDA card, as users run them.
     python3 ecbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout.  ``BENCHMARK.json`` names the cell's
-configuration (``configs/``) and traffic (``workloads/``).  Set-up writes
-the cell's ``.vxc`` text into a temporary directory, reads it with the
-program's ``read_vxc``, builds one ``Simulation(model, float32)`` with the
-program's defaults and runs one transient, which loads the kernels and
-captures the solve's graphs, then more transients for a fixed ``WARM_S``
-seconds, past the card's slow start (:func:`warm_up`).  The
-window then runs ``Simulation.run()``, one whole transient after
-another from a cold state (a closed loop with one client), for
-``--seconds``, and ends when the transient in flight ends.  The seed draws
-the order in which the transients take the coil currents' 32 phases
-(``cases/vxc_text.py``) and the sample of steps the check judges.
+configuration (``configs/``) and traffic (``workloads/``); the
+configuration names its case module (``cases/<case>.py``, the coil over a
+plate without one).  Set-up writes the case's ``.vxc`` text into a
+temporary directory, reads it with the program's ``read_vxc``, builds one
+``Simulation(model, float32)`` with the program's defaults and runs one
+transient, which loads the kernels and captures the solve's graphs, then
+more transients for a fixed ``WARM_S`` seconds, past the card's slow
+start (:func:`warm_up`).  The window then runs ``Simulation.run()``, one
+whole transient after another from a cold state (a closed loop with one
+client), for ``--seconds``, and ends when the transient in flight ends.
+The seed draws the order in which the transients take the source
+currents' 32 phases (``vxc.py``) and the sample of steps the check
+judges.
 
 With ``--trace 0`` the line holds the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics: the window times the step's host part
 (``Simulation._rhs``, wrapped on the instance), and after it one more
-transient runs under one profiler session (``devtrace.py``).
+transient runs under one profiler session (``devtrace.py``).  A metric
+whose reader has an ``install(sim)`` times the window itself: the harness
+installs it on the instance just before the window.
 
 Correctness (``check.py``): a sample of the window's steps, drawn from the
 seed, is judged after the window by the float64 reference
-(``reference/``), which builds each step's system from the cell's data,
-not from the ``.vxc`` text.  Every number compared is printed beside its
-limit, last on standard error and under ``checks`` in the result line.
+(``reference/``), which builds each step's system from the case module's
+data (its ``reference_case``), not from the ``.vxc`` text.  Every number
+compared is printed beside its limit, last on standard error and under
+``checks`` in the result line.
 
 Exits 2 without the cell's CUDA cards, 3 when the process holds JAX or the
 JAX package after the window, 4 on a short trace; prints no result then.
@@ -57,9 +62,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from ecbench import cellspec, devtrace  # noqa: E402
-from ecbench.cases.vxc_text import (coil_over_plate, phases,  # noqa: E402
-                                    set_phase)
 from ecbench.check import Recorder, judge  # noqa: E402
+from ecbench.vxc import phases, set_phase  # noqa: E402
 
 # top-level modules that may not be loaded in the process that prints
 FORBIDDEN = ("jax", "jaxlib", "flax", "eddy_currents_3d_tpu")
@@ -132,7 +136,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     try:
         path = os.path.join(tmp, "case.vxc")
         with open(path, "w") as f:
-            f.write(coil_over_plate(cell.config, cell.traffic, order[0]))
+            f.write(cell.case.vxc_text(cell.config, cell.traffic, order[0]))
         sim = Simulation(read_vxc(path),
                          dtype or DTYPES[cell.config["dtype"]],
                          device=device)
@@ -142,6 +146,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
 
         rec = Recorder(sim, rng)
         spent = _rhs_timer(sim) if trace else None
+        reported = cell.per_layer if trace else cell.end_to_end
+        installed = {}
+        for m in reported:
+            install = cellspec.load_install(cell.here, m["name"])
+            if install is not None:
+                installed[m["name"]] = install(sim)
         steps = its = attempted = failed = 0
         start = time.perf_counter()
         while True:
@@ -169,7 +179,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
         if cuda:
             torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        readings = judge(cell.config, cell.traffic, samples)
+        readings = judge(cell.case.reference_case(cell.config, cell.traffic),
+                         samples)
         ref_s = time.perf_counter() - t1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -179,9 +190,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
            "window": {"wall_s": wall, "steps": steps, "iterations": its,
                       "transients": attempted,
                       "rhs_host_s": sum(spent) if spent is not None else None},
-           "trace": traced}
+           "trace": traced, "installed": installed}
     metrics = {}
-    for m in (cell.per_layer if trace else cell.end_to_end):
+    for m in reported:
         value = cellspec.load_reader(cell.here, m["name"])(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}

@@ -19,7 +19,6 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 from ecbench import cellspec  # noqa: E402
-from ecbench.cases.vxc_text import coil_over_plate  # noqa: E402
 from ecbench.reference.step import StepReference  # noqa: E402
 from ecbench.run import run_cell  # noqa: E402
 from eddy_currents_3d_tpu_torch import Simulation  # noqa: E402
@@ -30,6 +29,7 @@ from eddy_currents_3d_tpu_torch.testing.cases import (  # noqa: E402
 
 HERE = ROOT / "ecbench"
 SHAPE = [20, 20, 12]
+CASE = cellspec.load_case(HERE, {})         # team7's: the coil over a plate
 
 
 def _case(traffic, steps, phase=1.3):
@@ -37,7 +37,7 @@ def _case(traffic, steps, phase=1.3):
     cfg["grid_xyz"] = SHAPE
     trf = json.loads((HERE / f"workloads/{traffic}.json").read_text())
     trf["steps"] = steps
-    return coil_over_plate(cfg, trf, phase)
+    return CASE.vxc_text(cfg, trf, phase)
 
 
 @pytest.mark.parametrize("traffic,builder", [("static", case_static),
@@ -70,7 +70,7 @@ def _data(traffic, steps):
 def test_every_seed_runs_the_same_phases_in_its_own_order():
     """Every seed takes the same PHASES phases, in an order of its own in
     which every first 2^m are evenly spaced; one seed gives it again."""
-    from ecbench.cases.vxc_text import PHASES, phases
+    from ecbench.vxc import PHASES, phases
 
     runs = [phases(np.random.default_rng(seed))
             for seed in (2**31 + 5, 2**31 + 6, 2**31 + 5, 2**31 + 8)]
@@ -87,12 +87,11 @@ def test_set_phase_is_the_text_at_that_phase():
     """Between transients a run gives the program's parsed model another
     phase; it equals the model of a .vxc written with that phase, and the
     reference's sources at that phase."""
-    from ecbench.cases.vxc_text import phases, set_phase
-    from ecbench.reference.case import read_case
+    from ecbench.vxc import phases, set_phase
 
     order = phases(np.random.default_rng(2**31 + 5))
     ts = np.linspace(0.0, 0.04, 9)
-    case = read_case(*_data("moving", 10))
+    case = CASE.reference_case(*_data("moving", 10))
     with tempfile.TemporaryDirectory() as d:
         def parsed(phase):
             path = os.path.join(d, f"{phase}.vxc")
@@ -126,14 +125,13 @@ def test_reference_system_is_the_test_oracles(traffic, tmp_path):
     """The reference's matrix and one-sided rows, built from the cell's
     data, are the test oracle's, built from the program's parse of the
     text, entry for entry."""
-    from ecbench.reference.case import read_case
     from ecbench.reference.system import assemble
 
     path = tmp_path / "case.vxc"
     path.write_text(_case(traffic, 8))
     M, bnd_a, bnd_u = _oracle().OracleSystem(
         read_vxc(str(path))).to_scipy()
-    sys_ = assemble(read_case(*_data(traffic, 8)))
+    sys_ = assemble(CASE.reference_case(*_data(traffic, 8)))
     assert (abs(sys_.M - M)).nnz == 0 and sys_.M.nnz == M.nnz
     flat = lambda lists: sorted({i - 1 for b in lists for i in b})
     assert list(sys_.bnd_a) == flat(bnd_a)
@@ -145,7 +143,7 @@ def test_reference_holds_the_programs_steps(traffic, tmp_path):
     path = tmp_path / "case.vxc"
     path.write_text(_case(traffic, 8))
     sim = Simulation(read_vxc(str(path)), torch.float32, device="cpu")
-    ref = StepReference(*_data(traffic, 8))
+    ref = StepReference(CASE.reference_case(*_data(traffic, 8)))
     solve, got = sim.solve, {}
 
     def keep(b, x0, eager=False, read=True):
@@ -170,7 +168,8 @@ def test_reference_holds_the_programs_steps(traffic, tmp_path):
 
 
 def _tiny_cell(tmp, traffic="static", steps=4):
-    for d in ("metrics", "kernels", "workloads", "limits", "configs"):
+    for d in ("cases", "metrics", "kernels", "workloads", "limits",
+              "configs"):
         shutil.copytree(HERE / d, tmp / d)
     cfg = json.loads((HERE / "configs/team7.json").read_text())
     cfg["grid_xyz"] = SHAPE

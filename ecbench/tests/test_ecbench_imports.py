@@ -10,6 +10,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[2]
 HERE = ROOT / "ecbench"
 JAX = {"jax", "jaxlib", "flax", "eddy_currents_3d_tpu"}
@@ -42,10 +44,36 @@ def test_no_module_of_the_benchmark_imports_jax():
         assert top == "eddy_currents_3d_tpu_torch", p
 
 
-def test_the_reference_imports_nothing_of_the_program():
-    for p in (HERE / "reference").rglob("*.py"):
-        assert _imports(p) <= {"__future__", "numpy", "scipy", "math",
-                               "dataclasses"}, p
+PLAIN = {"__future__", "numpy", "scipy", "math", "dataclasses"}
+
+
+def _harness_imports(path: Path) -> set[str]:
+    """Every module of the benchmark ``path`` imports, relative imports
+    resolved against its package."""
+    pkg = path.relative_to(ROOT).with_suffix("").parts[:-1]
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if not isinstance(node, ast.ImportFrom):
+            continue
+        if node.level:
+            base = pkg[:len(pkg) - node.level + 1]
+            out.add(".".join(base + ((node.module,) if node.module else ())))
+        elif node.module.split(".")[0] == "ecbench":
+            out.add(node.module)
+    return out
+
+
+@pytest.mark.parametrize("part", ["reference", "cases"])
+def test_the_reference_imports_nothing_of_the_program(part):
+    """The reference and every case module, which gives the reference its
+    data, import numpy, scipy and the standard library, and of the
+    benchmark only the reference and the .vxc writer."""
+    files = sorted((HERE / part).rglob("*.py"))
+    assert files
+    for p in files + [HERE / "vxc.py"]:
+        assert _imports(p) <= PLAIN | {"ecbench"}, p
+        assert all(m == "ecbench.vxc" or m.startswith("ecbench.reference")
+                   for m in _harness_imports(p)), p
 
 
 def _run(cwd, *args):

@@ -55,11 +55,15 @@ def test_names_units_and_keys():
                                           "source"}
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
-    e2e = {m["name"] for m in BENCH["end_to_end"]}
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    cells = {w["name"] for w in BENCH["workloads"]}
     for m in BENCH["per_layer"]:
-        assert set(m) - {"workloads"} == {"name", "unit", "better", "source",
-                                          "layer", "moves"}
+        assert set(m) == {"name", "unit", "better", "source", "layer",
+                          "moves", "workloads"}
         assert m["moves"] in e2e
+        # each cell it lists reports the end-to-end metric it moves
+        assert set(m["workloads"]) <= set(
+            e2e[m["moves"]].get("workloads", cells)), m
     for n in names:
         assert cellspec.NAME.match(n), n
     for text in ([c["why"] for c in BENCH["configs"] + BENCH["workloads"]]
@@ -88,7 +92,8 @@ def test_new_config_traffic_cell_and_metric_found_by_name(tmp_path):
     limits and a metric reader, and entries in BENCHMARK.json."""
     from ecbench.run import run_cell
 
-    for d in ("metrics", "kernels", "workloads", "limits", "configs"):
+    for d in ("cases", "metrics", "kernels", "workloads", "limits",
+              "configs"):
         shutil.copytree(HERE / d, tmp_path / d)
     cfg = json.loads((HERE / "configs" / "team7.json").read_text())
     cfg.update(name="tiny", grid_xyz=[20, 20, 12])
@@ -111,6 +116,10 @@ def test_new_config_traffic_cell_and_metric_found_by_name(tmp_path):
                                 "better": "higher", "bound": 0.01,
                                 "source": "host_clock",
                                 "workloads": ["tiny.short"]})
+    # a metric that lists its cells takes the new one by an entry in its list
+    for m in bench["end_to_end"]:
+        if m["name"] == "ms_per_step":
+            m["workloads"].append("tiny.short")
     cell = cellspec.Cell(bench, "tiny.short", tmp_path)
     out = run_cell(cell, 7, 0.0, False, device="cpu", t0=time.perf_counter(),
                    warm_s=0.0)
@@ -152,3 +161,55 @@ def test_warm_up_runs_a_fixed_time(per_it, warm_s, runs):
     took = time.perf_counter() - start
     assert runs[0] <= n <= runs[1]
     assert warm_s <= took < warm_s + 0.3
+
+
+def test_a_metric_times_the_window_by_an_install_of_its_own(tmp_path):
+    """A reader with ``install(sim)`` is installed just before the window,
+    and what it returns reaches it: here it counts the window's solves,
+    one a step, and none of set-up's."""
+    from ecbench.run import run_cell
+
+    for d in ("cases", "metrics", "kernels", "workloads", "limits",
+              "configs"):
+        shutil.copytree(HERE / d, tmp_path / d)
+    cfg = json.loads((HERE / "configs" / "team7.json").read_text())
+    cfg["grid_xyz"] = [20, 20, 12]
+    (tmp_path / "configs" / "team7.json").write_text(json.dumps(cfg))
+    trf = json.loads((HERE / "workloads" / "moving.json").read_text())
+    trf["steps"] = 3
+    (tmp_path / "workloads" / "moving.json").write_text(json.dumps(trf))
+    (tmp_path / "metrics" / "solves_per_step.py").write_text(
+        "def install(sim):\n    inner, n = sim.solve, []\n"
+        "    def counted(*a, **k):\n        n.append(1)\n"
+        "        return inner(*a, **k)\n"
+        "    sim.solve = counted\n    return n\n\n"
+        "def read(ctx):\n"
+        "    return len(ctx['installed']['solves_per_step'])"
+        " / ctx['window']['steps']\n")
+    bench = json.loads(json.dumps(BENCH))
+    bench["end_to_end"].append({"name": "solves_per_step", "unit": "solves",
+                                "better": "lower", "bound": 0.01,
+                                "source": "host_clock",
+                                "workloads": ["team7.moving"]})
+    cell = cellspec.Cell(bench, "team7.moving", tmp_path)
+    out = run_cell(cell, 2**31 + 5, 0.0, False, device="cpu",
+                   t0=time.perf_counter(), warm_s=0.0)
+    assert out["correct"], out["checks"]
+    assert out["metrics"]["solves_per_step"]["value"] == 1
+    # the card's time is not read off the card: left out of the line
+    assert set(out["metrics"]) == {"setup_s", "solves_per_step"}
+
+
+@pytest.mark.parametrize("name", sorted(
+    m["name"] for m in BENCH["per_layer"] if m["name"].endswith(".moving")))
+def test_a_split_metric_reads_as_its_own(name):
+    """``<metric>.moving`` reads what ``<metric>`` reads."""
+    ctx = {"window": {"wall_s": 51.3, "steps": 30300, "iterations": 747501,
+                      "transients": 300, "rhs_host_s": 40.1},
+           "trace": {"busy_s": 0.1, "window_s": 0.3, "steps": 101,
+                     "iterations": 2492, "device_us": 70400.0,
+                     "operator": {"device_us": 46100.0, "launches": 5186}},
+           "setup_s": 53.2, "installed": {}}
+    base = name[:-len(".moving")]
+    assert cellspec.load_reader(HERE, name)(ctx) == \
+        cellspec.load_reader(HERE, base)(ctx) is not None

@@ -40,7 +40,8 @@ def test_a_traced_run_on_the_card(tmp_path):
         pytest.skip("needs a CUDA card")
     from ecbench.run import run_cell
 
-    for d in ("metrics", "kernels", "workloads", "limits", "configs"):
+    for d in ("cases", "metrics", "kernels", "workloads", "limits",
+              "configs"):
         shutil.copytree(HERE / d, tmp_path / d)
     cfg = json.loads((HERE / "configs/team7.json").read_text())
     cfg["grid_xyz"] = [40, 40, 16]
@@ -53,3 +54,24 @@ def test_a_traced_run_on_the_card(tmp_path):
     assert names <= set(out["metrics"])
     assert 0 < out["device"]["busy_s"] < out["device"]["window_s"]
     assert out["breakdown"]["device_ops"] and out["breakdown"]["idle_gaps"]
+
+
+@pytest.mark.cuda
+def test_the_cards_solve_time_is_read_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ecbench.run import run_cell
+
+    for d in ("cases", "metrics", "kernels", "workloads", "limits",
+              "configs"):
+        shutil.copytree(HERE / d, tmp_path / d)
+    cfg = json.loads((HERE / "configs/team7.json").read_text())
+    cfg["grid_xyz"] = [40, 40, 16]
+    (tmp_path / "configs/team7.json").write_text(json.dumps(cfg))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cell = cellspec.Cell(bench, "team7.moving", tmp_path)
+    out = run_cell(cell, 13, 1.0, False, t0=time.perf_counter(), warm_s=0.0)
+    assert out["correct"], out["checks"]
+    card = out["metrics"]["solve_card_ms_per_step"]["value"]
+    wall = out["info"]["window_s"] * 1e3 / out["info"]["steps"]
+    assert 0 < card < wall

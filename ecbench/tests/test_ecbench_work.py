@@ -9,8 +9,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from ecbench import work  # noqa: E402
-from ecbench.reference.case import read_case  # noqa: E402
+from ecbench import cellspec, work  # noqa: E402
 from ecbench.reference.system import assemble  # noqa: E402
 
 
@@ -33,7 +32,8 @@ def test_operator_bytes_by_hand():
 def test_conductor_count_and_coefficients_of_the_team7_case():
     cfg = json.loads((ROOT / "ecbench/configs/team7.json").read_text())
     trf = json.loads((ROOT / "ecbench/workloads/static.json").read_text())
-    sys_ = assemble(read_case(cfg, trf))
+    sys_ = assemble(cellspec.load_case(ROOT / "ecbench", cfg)
+                    .reference_case(cfg, trf))
     assert sys_.cond.size == 46_080
     assert sys_.M.shape == (795_168, 795_168)
     n = work.distinct_coefficients(sys_.M.data)
