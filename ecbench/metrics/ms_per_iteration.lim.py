@@ -1,0 +1,9 @@
+"""ms_per_iteration.lim: ``ms_per_iteration``, by its reader, in lim.recip,
+where it moves ``solve_card_ms_per_step``: that cell's wall time is paced by
+the host's relocation and scatter of its 12 windings (PERF.md)."""
+
+from pathlib import Path
+
+from ecbench.cellspec import load_reader
+
+read = load_reader(Path(__file__).resolve().parents[1], "ms_per_iteration")

@@ -72,9 +72,11 @@ With the tracer on (``utils/trace.py``) a transient keeps spans at the
 step's layer boundaries: ``run`` (a transient of ``run`` or ``run_scan``),
 ``step`` (one ``_step``, with the device clock), inside it ``rhs``
 (``_rhs``, and in it ``rhs.motion``, the source functions' relocation, a
-device wait), ``solve`` (the device loop's solve, with the device clock)
-and ``carry`` (the carry and the surface zeroing); and the counters
-``steps`` and ``iterations``.
+device wait, and ``rhs.scatter``, the fill of their cells), ``solve`` (the
+device loop's solve, with the device clock) and ``carry`` (the carry and
+the surface zeroing); and the counters ``steps``, ``iterations``,
+``motion.functions`` (source functions relocated) and ``scatter.cells``
+(source cells filled).
 """
 
 from __future__ import annotations
@@ -718,6 +720,7 @@ class Simulation:
         motion = state.motion
         src_cells = []
         src_values = []
+        filled = 0              # source cells filled, for the tracer
         if self.flag_move:
             # motion-velocity functions at time t (EC3D.f90:260-271)
             vmech_vals = np.array([vm(t) for vm in model.vmech], np.float64)
@@ -733,19 +736,26 @@ class Simulation:
                     dist_rows.append(drow)
                     comp_rows.append(crow)
                     src_cells.append(flat)
-            for (comp, fn, *_), flat in zip(self._funs, src_cells):
-                val = self._cast(fn(t))
-                base[comp].index_fill_(0, self._upload(self._own(flat)), val)
-                src_values.append(val)
+            trace.count("motion.functions", len(src_cells))
+            with trace.span("rhs.scatter"):
+                for (comp, fn, *_), flat in zip(self._funs, src_cells):
+                    val = self._cast(fn(t))
+                    own = self._own(flat)
+                    base[comp].index_fill_(0, self._upload(own), val)
+                    filled += len(own)
+                    src_values.append(val)
             motion = MotionState(distance=np.stack(dist_rows),
                                  movestop=movestop,
                                  comp=np.stack(comp_rows))
         else:
-            for comp, fn, cells_np, cells, _ in self._funs:
-                val = self._cast(fn(t))
-                base[comp].index_fill_(0, cells, val)
-                src_cells.append(cells_np)
-                src_values.append(val)
+            with trace.span("rhs.scatter"):
+                for comp, fn, cells_np, cells, _ in self._funs:
+                    val = self._cast(fn(t))
+                    base[comp].index_fill_(0, cells, val)
+                    filled += len(cells)
+                    src_cells.append(cells_np)
+                    src_values.append(val)
+        trace.count("scatter.cells", filled)
 
         rhs_A = base.reshape((3,) + self._shape) + inert[None] * state.A
         # the field tier has no apply_div: its RHS term is the assembled

@@ -3,11 +3,13 @@ the CPU.
 
 * A traced ``run()`` keeps one ``step`` span a step, each holding one
   ``rhs``, one ``solve`` and one ``carry``, under the transient's ``run``
-  span and with its run number; the moving case adds one ``rhs.motion``
-  span a step inside ``rhs``, over its source functions' relocation.  Self
-  times are not negative and children never cover more than their parent.
-  The counters equal ``run()``'s diagnostics; ``run_scan`` keeps the same
-  spans.  Off, nothing is kept and the span sites get one shared null
+  span and with its run number; inside ``rhs`` one ``rhs.scatter`` span a
+  step, over the fill of the source cells, and in the moving cases (the
+  coil, the linear machine's twelve windings) one ``rhs.motion`` span
+  before it, over their relocation.  Self times are not negative and
+  children never cover more than their parent.  The counters equal
+  ``run()``'s diagnostics, the source functions relocated and the source
+  cells filled; ``run_scan`` keeps the same spans.  Off, nothing is kept and the span sites get one shared null
   context; the state is bit for bit that of an untraced run.
 * The device clock, with a stand-in for CUDA's timing events that completes
   when it is recorded (a card with no queue): every span's device interval
@@ -32,8 +34,9 @@ from eddy_currents_3d_tpu_torch.sim.simulate import Simulation
 from eddy_currents_3d_tpu_torch.testing import cases
 from eddy_currents_3d_tpu_torch.utils import trace
 
-CASES = {"static": cases.case_static, "moving": cases.case_moving}
-MOTION = {"static": 0, "moving": 1}   # motion spans a step
+CASES = {"static": cases.case_static, "moving": cases.case_moving,
+         "lim": cases.case_lim}
+MOTION = {"static": 0, "moving": 1, "lim": 1}   # motion spans a step
 
 
 @pytest.fixture(autouse=True)
@@ -77,7 +80,8 @@ def test_traced_run_keeps_a_step_span_a_step(sims, case):
         rhs = next(j for j, c in enumerate(spans)
                    if c["parent"] == i and c["name"] == "rhs")
         motion = _children(spans, rhs)
-        assert [c["name"] for c in motion] == ["rhs.motion"] * MOTION[case]
+        assert [c["name"] for c in motion] == (["rhs.motion"] * MOTION[case]
+                                               + ["rhs.scatter"])
         for c in kids + motion:
             assert (c["run"], c["step"]) == (s["run"], k)
     assert {s["run"] for s in spans} == {spans[runs[0]]["run"]}
@@ -101,7 +105,11 @@ def test_self_times_and_children_within_parents(sims, case):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_counters_equal_the_run_diagnostics(sims, case):
     _, diag, rep = _traced_run(sims[case])
-    want = {"steps": diag["steps"], "iterations": diag["total_iterations"]}
+    fns = sims[case].model.functions
+    want = {"steps": diag["steps"], "iterations": diag["total_iterations"],
+            "scatter.cells": sum(len(f.cells) for f in fns) * diag["steps"]}
+    if MOTION[case]:
+        want["motion.functions"] = len(fns) * diag["steps"]
     assert rep["counters"] == want
     assert rep["runs"] == [{"run": 0, "wait_before_ns": None}]
     s = trace.summary(rep)
@@ -119,7 +127,7 @@ def test_run_scan_keeps_the_same_spans(sims):
     n = len(sdiag["iterations"])
     assert names.count("run") == 1
     for name, per in (("step", 1), ("rhs", 1), ("solve", 1), ("carry", 1),
-                      ("rhs.motion", 1)):
+                      ("rhs.motion", 1), ("rhs.scatter", 1)):
         assert names.count(name) == per * n
     assert rep["counters"]["iterations"] == int(sdiag["iterations"].sum())
 
